@@ -1,0 +1,56 @@
+"""dpt_tpu_torch — the PyTorch/CUDA port of `dpt_tpu`.
+
+A second package beside the JAX one, with the same layout and module names,
+checked against it (tests/test_torch_*.py).  It renders the flagship forward
+path: procedural mesh, SAH BVH packed 4-wide, raygen with DoF and AA,
+primary trace shared with the direct-view light pass, carry compaction, and
+bounces with NEE, SSS walk and a cosine bounce, with every query after the
+primary coherence-sorted.  The 4-wide BVH walk runs as a hand-written CUDA
+kernel on the card (csrc/quad_traverse.cu) and as its plain PyTorch version
+on the CPU.
+
+It imports torch and numpy only, never jax or dpt_tpu.
+"""
+
+from dpt_tpu_torch.config import PRESETS, RenderConfig, preset
+from dpt_tpu_torch.render.renderer import (
+    accumulate,
+    render,
+    render_progressive,
+    render_sample,
+)
+from dpt_tpu_torch.scene.builder import (
+    cornell_box_scene,
+    knot_scene,
+    procedural_scene,
+)
+from dpt_tpu_torch.scene.camera import Camera, OrbitCamera
+from dpt_tpu_torch.scene.scene import (
+    Lights,
+    Materials,
+    Scene,
+    default_lights,
+    make_area_lights,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "RenderConfig",
+    "PRESETS",
+    "preset",
+    "Scene",
+    "Materials",
+    "Lights",
+    "make_area_lights",
+    "default_lights",
+    "OrbitCamera",
+    "Camera",
+    "cornell_box_scene",
+    "procedural_scene",
+    "knot_scene",
+    "render",
+    "render_sample",
+    "render_progressive",
+    "accumulate",
+]

@@ -1,0 +1,225 @@
+"""Host BVH builders — top-down median split and binned SAH, SoA layout.
+
+Counterpart of `dpt_tpu/accel/bvh.py`: a copy of its numpy builders, so both
+packages build byte-identical trees.  Splitting policy as in the reference's
+recursive CPU builder (BoundingVolumeHierarchy.cpp:25-82); leaves hold up to
+`leaf_size` triangles; the index buffer is not mutated — `tri_order` holds
+the permutation and leaves store ranges into it.
+
+Node encoding: internal → left/right = child node ids;
+leaf → left = -count, right = first index into tri_order.
+
+`build_accel` handles the `brute` and `quad` traversals of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class BVH:
+    """SoA BVH of host numpy arrays (packing is host work)."""
+
+    node_min: np.ndarray  # [N, 3] f32
+    node_max: np.ndarray  # [N, 3] f32
+    node_left: np.ndarray  # [N] i32 (-count for leaves)
+    node_right: np.ndarray  # [N] i32 (child id | first tri_order slot)
+    tri_order: np.ndarray  # [T] i32 permutation of triangle ids
+
+    @property
+    def n_nodes(self) -> int:
+        return self.node_min.shape[0]
+
+
+def build_bvh_median(vertices: np.ndarray, indices: np.ndarray,
+                     leaf_size: int = 4) -> BVH:
+    """Median-split BVH (semantics of BoundingVolumeHierarchy.cpp:25-82)."""
+    vertices = np.asarray(vertices, np.float32)
+    indices = np.asarray(indices, np.int32)
+    n_tri = indices.shape[0]
+    assert n_tri > 0
+
+    tri = vertices[indices]  # [T, 3, 3]
+    tri_min = tri.min(axis=1)
+    tri_max = tri.max(axis=1)
+    centroid = tri.mean(axis=1)
+
+    # Worst-case node count for leaf_size>=1 is 2*ceil(T/1)-1; allocate for
+    # leaf_size=1 and trim.
+    max_nodes = max(2 * n_tri - 1, 1)
+    node_min = np.zeros((max_nodes, 3), np.float32)
+    node_max = np.zeros((max_nodes, 3), np.float32)
+    node_left = np.zeros(max_nodes, np.int32)
+    node_right = np.zeros(max_nodes, np.int32)
+    order = np.arange(n_tri, dtype=np.int32)
+
+    n_nodes = 0
+    # Iterative pre-order build: stack of (start, end, node_id).
+    stack = [(0, n_tri, 0)]
+    n_nodes = 1
+    while stack:
+        start, end, nid = stack.pop()
+        ids = order[start:end]
+        node_min[nid] = tri_min[ids].min(axis=0)
+        node_max[nid] = tri_max[ids].max(axis=0)
+        count = end - start
+        if count <= leaf_size:
+            node_left[nid] = -count
+            node_right[nid] = start
+            continue
+        ext = node_max[nid] - node_min[nid]
+        axis = int(np.argmax(ext))
+        # Median split along the longest axis (BoundingVolumeHierarchy.cpp:56-72).
+        key = centroid[ids, axis]
+        perm = np.argsort(key, kind="stable")
+        order[start:end] = ids[perm]
+        mid = start + count // 2
+        left_id = n_nodes
+        right_id = n_nodes + 1
+        n_nodes += 2
+        node_left[nid] = left_id
+        node_right[nid] = right_id
+        # Push right then left so left pops first (pre-order-ish numbering).
+        stack.append((mid, end, right_id))
+        stack.append((start, mid, left_id))
+
+    return BVH(
+        node_min=node_min[:n_nodes],
+        node_max=node_max[:n_nodes],
+        node_left=node_left[:n_nodes],
+        node_right=node_right[:n_nodes],
+        tri_order=order,
+    )
+
+
+def build_bvh_sah(vertices: np.ndarray, indices: np.ndarray,
+                  leaf_size: int = 8, n_bins: int = 16) -> BVH:
+    """Binned surface-area-heuristic BVH (host; C++ for large meshes).
+
+    Upgrade over the reference's median split (BoundingVolumeHierarchy.cpp:
+    56-72): per node, centroids are binned along each axis and the split
+    minimizing N_L*area(L) + N_R*area(R) is taken.  Same node encoding as
+    build_bvh_median.  The numpy path of the JAX package, byte for byte (the
+    native C++ builder is not used here).
+    """
+    vertices = np.asarray(vertices, np.float32)
+    indices = np.asarray(indices, np.int32)
+    n_tri = indices.shape[0]
+    assert n_tri > 0
+
+    tri = vertices[indices]
+    tri_min = tri.min(axis=1)
+    tri_max = tri.max(axis=1)
+    centroid = tri.mean(axis=1)
+
+    max_nodes = max(2 * n_tri - 1, 1)
+    node_min = np.zeros((max_nodes, 3), np.float32)
+    node_max = np.zeros((max_nodes, 3), np.float32)
+    node_left = np.zeros(max_nodes, np.int32)
+    node_right = np.zeros(max_nodes, np.int32)
+    order = np.arange(n_tri, dtype=np.int32)
+
+    def half_area(mn, mx):
+        d = np.maximum(mx - mn, 0.0)
+        return d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2] + d[..., 2] * d[..., 0]
+
+    stack = [(0, n_tri, 0)]
+    n_nodes = 1
+    while stack:
+        start, end, nid = stack.pop()
+        ids = order[start:end]
+        node_min[nid] = tri_min[ids].min(axis=0)
+        node_max[nid] = tri_max[ids].max(axis=0)
+        count = end - start
+        if count <= leaf_size:
+            node_left[nid] = -count
+            node_right[nid] = start
+            continue
+
+        c = centroid[ids]
+        cmin, cmax = c.min(axis=0), c.max(axis=0)
+        ext = cmax - cmin
+        best = None  # (cost, axis, bin_idx, bin_of_tri)
+        for axis in range(3):
+            if ext[axis] <= 1e-12:
+                continue
+            scale = n_bins * (1.0 - 1e-6) / ext[axis]
+            b = ((c[:, axis] - cmin[axis]) * scale).astype(np.int32)
+            cnt = np.bincount(b, minlength=n_bins)
+            # Per-bin bounds via maximum.at / minimum.at scatters.
+            bmin = np.full((n_bins, 3), np.inf, np.float32)
+            bmax = np.full((n_bins, 3), -np.inf, np.float32)
+            np.minimum.at(bmin, b, tri_min[ids])
+            np.maximum.at(bmax, b, tri_max[ids])
+            # Prefix (left) and suffix (right) sweeps over split planes.
+            lmin = np.minimum.accumulate(bmin, axis=0)
+            lmax = np.maximum.accumulate(bmax, axis=0)
+            rmin = np.minimum.accumulate(bmin[::-1], axis=0)[::-1]
+            rmax = np.maximum.accumulate(bmax[::-1], axis=0)[::-1]
+            lcnt = np.cumsum(cnt)
+            rcnt = count - lcnt
+            # Split after bin k (k = 0..n_bins-2).
+            cost = (
+                lcnt[:-1] * half_area(lmin[:-1], lmax[:-1])
+                + rcnt[:-1] * half_area(rmin[1:], rmax[1:])
+            )
+            cost = np.where((lcnt[:-1] == 0) | (rcnt[:-1] == 0), np.inf, cost)
+            k = int(np.argmin(cost))
+            if np.isfinite(cost[k]) and (best is None or cost[k] < best[0]):
+                best = (cost[k], axis, k, b)
+
+        if best is None:
+            # Degenerate centroids: median split on the longest node axis.
+            axis = int(np.argmax(node_max[nid] - node_min[nid]))
+            perm = np.argsort(c[:, axis], kind="stable")
+            order[start:end] = ids[perm]
+            mid = start + count // 2
+        else:
+            _, axis, k, b = best
+            go_left = b <= k
+            order[start:end] = np.concatenate([ids[go_left], ids[~go_left]])
+            mid = start + int(go_left.sum())
+
+        left_id = n_nodes
+        right_id = n_nodes + 1
+        n_nodes += 2
+        node_left[nid] = left_id
+        node_right[nid] = right_id
+        stack.append((mid, end, right_id))
+        stack.append((start, mid, left_id))
+
+    return BVH(
+        node_min=node_min[:n_nodes],
+        node_max=node_max[:n_nodes],
+        node_left=node_left[:n_nodes],
+        node_right=node_right[:n_nodes],
+        tri_order=order,
+    )
+
+
+def build_accel(scene, cfg):
+    """Build the acceleration structure requested by cfg for a Scene: None
+    for 'brute', a QuadAccel on the scene's device for 'quad'."""
+    if cfg.traversal == "brute":
+        return None
+    if cfg.traversal != "quad":
+        # RenderConfig already rejects the known traversals not ported yet.
+        raise ValueError(f"unknown traversal mode: {cfg.traversal}")
+    v = scene.vertices.detach().cpu().numpy()
+    idx = scene.indices.detach().cpu().numpy()
+    if cfg.bvh_builder == "median":
+        bvh = build_bvh_median(v, idx, leaf_size=cfg.bvh_leaf_size)
+    elif cfg.bvh_builder == "sah":
+        bvh = build_bvh_sah(v, idx, leaf_size=cfg.bvh_leaf_size)
+    elif cfg.bvh_builder == "lbvh":
+        raise NotImplementedError(
+            "bvh_builder='lbvh' is not ported yet: ROADMAP Queue 1 item 14")
+    else:
+        raise ValueError(f"unknown bvh_builder: {cfg.bvh_builder}")
+    from dpt_tpu_torch.kernels.quad import pack_quad
+
+    return pack_quad(bvh, v[idx[:, 0]], v[idx[:, 1]], v[idx[:, 2]],
+                     device=scene.device)
