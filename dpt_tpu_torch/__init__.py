@@ -2,12 +2,15 @@
 
 A second package beside the JAX one, with the same layout and module names,
 checked against it (tests/test_torch_*.py).  It renders the flagship forward
-path: procedural mesh, SAH BVH packed 4-wide, raygen with DoF and AA,
-primary trace shared with the direct-view light pass, carry compaction, and
-bounces with NEE, SSS walk and a cosine bounce, with every query after the
-primary coherence-sorted.  The 4-wide BVH walk runs as a hand-written CUDA
-kernel on the card (csrc/quad_traverse.cu) and as its plain PyTorch version
-on the CPU.
+path: procedural mesh, SAH BVH packed 4-wide (or paired-children), raygen
+with DoF and AA, primary trace shared with the direct-view light pass,
+carry compaction, and bounces with NEE, SSS walk and a cosine bounce, with
+every query after the primary coherence-sorted.  It differentiates that
+render (diff/grads.py: tape, replay and plain backwards) and drives inverse
+rendering (diff/optimize.py, `cli optimize`).  The BVH walks run as
+hand-written CUDA kernels on the card (csrc/quad_traverse.cu,
+csrc/wide_traverse.cu) and as their plain PyTorch versions on the CPU.
+Entry points default to the card (`device="cuda"`).
 
 It imports torch and numpy only, never jax or dpt_tpu.
 """

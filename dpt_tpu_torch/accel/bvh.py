@@ -9,7 +9,8 @@ the permutation and leaves store ranges into it.
 Node encoding: internal → left/right = child node ids;
 leaf → left = -count, right = first index into tri_order.
 
-`build_accel` handles the `brute` and `quad` traversals of the port.
+`build_accel` handles the `brute`, `quad` and `pallas` traversals of the
+port.
 """
 
 from __future__ import annotations
@@ -202,10 +203,11 @@ def build_bvh_sah(vertices: np.ndarray, indices: np.ndarray,
 
 def build_accel(scene, cfg):
     """Build the acceleration structure requested by cfg for a Scene: None
-    for 'brute', a QuadAccel on the scene's device for 'quad'."""
+    for 'brute', a QuadAccel for 'quad', a WideAccel for 'pallas', on the
+    scene's device."""
     if cfg.traversal == "brute":
         return None
-    if cfg.traversal != "quad":
+    if cfg.traversal not in ("quad", "pallas"):
         # RenderConfig already rejects the known traversals not ported yet.
         raise ValueError(f"unknown traversal mode: {cfg.traversal}")
     v = scene.vertices.detach().cpu().numpy()
@@ -216,10 +218,14 @@ def build_accel(scene, cfg):
         bvh = build_bvh_sah(v, idx, leaf_size=cfg.bvh_leaf_size)
     elif cfg.bvh_builder == "lbvh":
         raise NotImplementedError(
-            "bvh_builder='lbvh' is not ported yet: ROADMAP Queue 1 item 14")
+            "bvh_builder='lbvh' is not ported yet: ROADMAP Queue 1 item 6")
     else:
         raise ValueError(f"unknown bvh_builder: {cfg.bvh_builder}")
+    corners = (v[idx[:, 0]], v[idx[:, 1]], v[idx[:, 2]])
+    if cfg.traversal == "pallas":
+        from dpt_tpu_torch.kernels.wide import pack_wide
+
+        return pack_wide(bvh, *corners, device=scene.device)
     from dpt_tpu_torch.kernels.quad import pack_quad
 
-    return pack_quad(bvh, v[idx[:, 0]], v[idx[:, 1]], v[idx[:, 2]],
-                     device=scene.device)
+    return pack_quad(bvh, *corners, device=scene.device)

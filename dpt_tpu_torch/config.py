@@ -13,10 +13,9 @@ import dataclasses
 
 # traversal value -> the ROADMAP item that ports it.
 _UNPORTED_TRAVERSALS = {
-    "bvh": "ROADMAP Queue 1 item 14 (portable lax traversals)",
-    "packet": "ROADMAP Queue 1 item 14 (portable lax traversals)",
-    "threaded": "ROADMAP Queue 1 item 14 (portable lax traversals)",
-    "pallas": "ROADMAP Queue 2 K2 (pallas_wide kernel)",
+    "bvh": "ROADMAP Queue 1 item 6 (LBVH and the other traversals)",
+    "packet": "ROADMAP Queue 1 item 6 (LBVH and the other traversals)",
+    "threaded": "ROADMAP Queue 1 item 6 (LBVH and the other traversals)",
 }
 
 
@@ -58,15 +57,16 @@ class RenderConfig:
     # Self-intersection offset (raytrace_comp.comp:305).
     offset: float = 1e-3
     # Triangle-intersection epsilon of the brute-force search
-    # (raytrace_comp.comp:116).  The quad walk hard-codes 1e-6 as the TPU
-    # kernel does.
+    # (raytrace_comp.comp:116).  The quad and paired-children walks
+    # hard-code 1e-6 as the TPU kernels do.
     eps: float = 1e-6
     t_max: float = 1e30
 
     # --- acceleration / execution ---------------------------------------
     # 'brute' : test all triangles per ray (oracle, small scenes)
-    # 'quad'  : 4-wide BVH walk (the flagship path; CUDA kernel on the card)
-    # 'bvh', 'packet', 'pallas', 'threaded' : not ported yet (raise).
+    # 'quad'  : 4-wide BVH walk (the flagship path; CUDA kernel K1)
+    # 'pallas': paired-children binary BVH walk (CUDA kernel K2)
+    # 'bvh', 'packet', 'threaded' : not ported yet (raise).
     traversal: str = "brute"
     # Rays per traversal chunk for 'threaded' (not ported; kept for parity).
     traversal_chunk: int = 128 * 1024
@@ -83,15 +83,19 @@ class RenderConfig:
     # Coherence-sort every traversal query stream after the primary by
     # (active, direction octant, origin Morton) (render/compaction.py).
     ray_sort: bool = False
-    # Carry-level wavefront sorting (not ported yet).
+    # Carry-level wavefront sorting (not ported yet: ROADMAP Queue 1 item 5).
     wavefront_sort: bool = False
     # Carry compaction after the primary trace: the bounce loop runs only on
     # the lanes whose primary ray hit.  Any value > 0 turns it on (the port
     # compacts to exactly the live lanes); 0 disables.
     compact_frac: float = 0.25
 
-    # Backward-pass knobs of the JAX package (the port is forward only).
+    # Rematerialise in backward passes: each spp body (and, in the tape's
+    # playback, each bounce) runs under torch.utils.checkpoint, so the
+    # backward recomputes it instead of storing its activations.
     remat_bounces: bool = True
+    # The playback's bounces are traversal-free arithmetic; this knob turns
+    # their remat off separately (needs remat_bounces too).
     playback_remat_bounces: bool = True
 
     def __post_init__(self):
@@ -103,12 +107,12 @@ class RenderConfig:
         if self.wavefront_sort:
             raise NotImplementedError(
                 "wavefront_sort=True is not ported yet: ROADMAP Queue 1 "
-                "item 7 (carry-level wavefront sort)"
+                "item 5 (carry-level wavefront sort)"
             )
         if self.kernels != "none":
             raise NotImplementedError(
                 f"kernels={self.kernels!r} is not ported yet: ROADMAP "
-                "Queue 2 K3 (pallas_intersect kernel)"
+                "Queue 2 K3 (pallas_intersect kernel, the next slice)"
             )
 
     @property

@@ -10,9 +10,10 @@
 //   tris:  L leaf rows of 128 floats — 8 triangles x 16 lanes
 //          (v0, e1, e2, oid, valid).
 //
-// Design: one thread per ray, with a per-thread stack of kStack entries in
-// local memory (the wrapper checks 3*max_depth+2 <= kStack).  The template
-// flag selects nearest or occluded mode.  The kernel computes what the TPU
+// Design: one thread per ray, with a per-thread stack of dpt::kStack entries
+// in local memory (the wrapper checks 3*max_depth+2 <= kStack).  The slab
+// and leaf-row tests live in traverse_common.cuh, shared with K2.  The
+// template flag selects nearest or occluded mode.  The kernel computes what the TPU
 // kernel computes, but for one ray instead of a tile: the ray's own
 // direction octant picks the near child (the TPU kernel votes per tile),
 // leaf children are intersected in slot order before any push, internal
@@ -30,28 +31,13 @@
 // sequence of roundings as the plain PyTorch walk, which makes the two
 // comparable exactly on the card.
 
-#include <cuda_runtime.h>
+#include "traverse_common.cuh"
 
 namespace {
 
-constexpr int kStack = 64;
-constexpr int kBlock = 128;
-constexpr float kTMax = 1e30f;
-constexpr float kTiny = 1e-20f;
-constexpr float kEps = 1e-6f;
-
-// NaN-propagating min / max (torch.minimum / torch.maximum semantics).
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
-__device__ __forceinline__ float safe_inv(float v) {
-  const float w = fabsf(v) < kTiny ? (v >= 0.f ? kTiny : -kTiny) : v;
-  return 1.0f / w;
-}
+using dpt::kBlock;
+using dpt::kStack;
+using dpt::kTMax;
 
 template <bool kOccluded>
 __global__ void __launch_bounds__(kBlock) quad_traverse_kernel(
@@ -62,12 +48,6 @@ __global__ void __launch_bounds__(kBlock) quad_traverse_kernel(
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
 
-  const float ox = __ldg(origin + 3 * r + 0);
-  const float oy = __ldg(origin + 3 * r + 1);
-  const float oz = __ldg(origin + 3 * r + 2);
-  const float dx = __ldg(direction + 3 * r + 0);
-  const float dy = __ldg(direction + 3 * r + 1);
-  const float dz = __ldg(direction + 3 * r + 2);
   float md = 0.f;
   if (kOccluded) {
     md = __ldg(max_dist + r);
@@ -76,11 +56,8 @@ __global__ void __launch_bounds__(kBlock) quad_traverse_kernel(
       return;
     }
   }
-  const float ix = safe_inv(dx);
-  const float iy = safe_inv(dy);
-  const float iz = safe_inv(dz);
-  const int octant =
-      (dx >= 0.f ? 4 : 0) + (dy >= 0.f ? 2 : 0) + (dz >= 0.f ? 1 : 0);
+  const dpt::Ray ray = dpt::load_ray(origin, direction, r);
+  const int octant = dpt::octant_of(ray);
 
   int stack[kStack];
   int sp = 1;
@@ -105,19 +82,8 @@ __global__ void __launch_bounds__(kBlock) quad_traverse_kernel(
     float ptr[4];
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
-      const int b = 6 * s;
-      float t0 = (f[b + 0] - ox) * ix;
-      float t1 = (f[b + 3] - ox) * ix;
-      float tn = min_nan(t0, t1);
-      float tf = max_nan(t0, t1);
-      t0 = (f[b + 1] - oy) * iy;
-      t1 = (f[b + 4] - oy) * iy;
-      tn = max_nan(tn, min_nan(t0, t1));
-      tf = min_nan(tf, max_nan(t0, t1));
-      t0 = (f[b + 2] - oz) * iz;
-      t1 = (f[b + 5] - oz) * iz;
-      tn = max_nan(tn, min_nan(t0, t1));
-      tf = min_nan(tf, max_nan(t0, t1));
+      float tn, tf;
+      dpt::slab(f, 6 * s, ray, tn, tf);
       hit[s] = kOccluded ? (tn <= tf && tf >= 0.f && tn < md)
                          : (tn <= tf && tf >= 0.f && tn <= best_t);
       ptr[s] = f[24 + s];
@@ -128,42 +94,10 @@ __global__ void __launch_bounds__(kBlock) quad_traverse_kernel(
     for (int s = 0; s < 4; ++s) {
       if (!(hit[s] && ptr[s] < 0.f)) continue;
       const int row = static_cast<int>(-ptr[s] - 1.0f);
-      const float4* tr = tris + 32 * static_cast<size_t>(row);
-      for (int k = 0; k < 8; ++k) {
-        const float4 a = __ldg(tr + 4 * k + 0);  // v0x v0y v0z e1x
-        const float4 b = __ldg(tr + 4 * k + 1);  // e1y e1z e2x e2y
-        const float4 c = __ldg(tr + 4 * k + 2);  // e2z oid valid -
-        const float v0x = a.x, v0y = a.y, v0z = a.z;
-        const float e1x = a.w, e1y = b.x, e1z = b.y;
-        const float e2x = b.z, e2y = b.w, e2z = c.x;
-        const bool valid = c.z > 0.5f;
-
-        const float px = dy * e2z - dz * e2y;
-        const float py = dz * e2x - dx * e2z;
-        const float pz = dx * e2y - dy * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        const bool parallel = fabsf(det) < kEps;
-        const float inv_det = 1.0f / (parallel ? 1.0f : det);
-        const float tx = ox - v0x;
-        const float ty = oy - v0y;
-        const float tz = oz - v0z;
-        const float u = inv_det * (tx * px + ty * py + tz * pz);
-        const float qx = ty * e1z - tz * e1y;
-        const float qy = tz * e1x - tx * e1z;
-        const float qz = tx * e1y - ty * e1x;
-        const float v = inv_det * (dx * qx + dy * qy + dz * qz);
-        const float t = inv_det * (e2x * qx + e2y * qy + e2z * qz);
-        const bool tri_hit = !parallel && u >= 0.f && u <= 1.f && v >= 0.f &&
-                             u + v <= 1.f && t > kEps && valid;
-        if (kOccluded) {
-          if (tri_hit && t < md) {
-            out_tri[r] = 1;
-            return;
-          }
-        } else if (tri_hit && t < best_t) {
-          best_t = t;
-          best_i = static_cast<int>(c.y);
-        }
+      if (dpt::leaf_row<kOccluded>(tris + 32 * static_cast<size_t>(row), ray,
+                                   md, best_t, best_i)) {
+        out_tri[r] = 1;
+        return;
       }
     }
 

@@ -10,6 +10,8 @@ Counterpart of `dpt_tpu/kernels/pallas_quad.py`.
     (v0, e1, e2, oid, valid)).  Empty slots carry NaN boxes, which fail
     every comparison.  The TPU-only row layout and memory-mode budgets are
     not carried over: on the card both tables stay in global memory.
+  - `refit_quad` refits the packed tables to moved vertices with torch
+    gathers and min / max, for vertex optimisation.
   - `quad_nearest` / `quad_occluded` launch the hand-written CUDA kernel
     (csrc/quad_traverse.cu) for CUDA tensors and run the plain PyTorch walk
     (`quad_nearest_reference` / `quad_occluded_reference`) for CPU tensors.
@@ -27,13 +29,12 @@ kernel is built with `-fmad=false`, so on the card the two agree exactly.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
-from dpt_tpu_torch.scene.scene import to_device
+from dpt_tpu_torch.scene.scene import resolve_device, to_device
 
 T_MAX = 1e30
 # Per-ray stack capacity of the CUDA kernel (kStack in quad_traverse.cu).
@@ -90,13 +91,14 @@ def _octant_near_masks(ca: np.ndarray, cb: np.ndarray) -> np.ndarray:
     return ((da <= db).astype(np.float32) * _OCT_BITS).sum(axis=1)
 
 
-def pack_quad(bvh, v0, v1, v2, device="cpu") -> QuadAccel:
+def pack_quad(bvh, v0, v1, v2, device="cuda") -> QuadAccel:
     """Collapse a binary accel.bvh.BVH into the 4-wide layout.
 
     A copy of `dpt_tpu.kernels.pallas_quad.pack_quad` (record ids in level
     order, every level packed with numpy array ops); returns tensors on
     `device`.
     """
+    device = resolve_device(device)
     nmin = np.asarray(bvh.node_min, np.float32)
     nmax = np.asarray(bvh.node_max, np.float32)
     left = np.asarray(bvh.node_left, np.int64)
@@ -225,6 +227,61 @@ def pack_quad(bvh, v0, v1, v2, device="cpu") -> QuadAccel:
     return result(rec_arr, W, int(depth[0]))
 
 
+def refit_quad(accel: QuadAccel, vertices, indices) -> QuadAccel:
+    """Refit the quad accel to moved vertices (pallas_quad.py:270-352).
+
+    Topology, pointers, leaf assignment and near masks stay as packed; the
+    leaf rows are regathered from `vertices` and every slot AABB is
+    recomputed bottom-up with `max_depth` sweeps of a gather plus min/max.
+    Leaf boxes are taken over the raw corners (not v0 + e1), and empty slots
+    keep their NaN boxes, so refitting with unchanged vertices gives the
+    packed tables bit for bit.  Runs on the accel's device with torch ops.
+    """
+    vertices = vertices.detach()
+    W = accel.n_wide
+    inf = torch.tensor(float("inf"), device=vertices.device)
+    nan = torch.tensor(float("nan"), device=vertices.device)
+
+    trows = accel.tris.reshape(-1, 8, 16)
+    tids = trows[:, :, 9].to(torch.int64)
+    vm = (trows[:, :, 10] > 0.0)[..., None]
+    idx = indices.long()[tids.clamp(min=0)]  # [L, 8, 3]
+    v0, v1, v2 = (vertices[idx[..., k]] for k in range(3))
+    zero = torch.zeros_like(v0)
+    new_rows = trows.clone()
+    new_rows[:, :, 0:3] = torch.where(vm, v0, zero)
+    new_rows[:, :, 3:6] = torch.where(vm, v1 - v0, zero)
+    new_rows[:, :, 6:9] = torch.where(vm, v2 - v0, zero)
+
+    corners = torch.stack([v0, v1, v2], dim=2)  # [L, 8, 3, 3]
+    cmask = vm[:, :, None, :]
+    leaf_min = torch.where(cmask, corners, inf).amin(dim=(1, 2))  # [L, 3]
+    leaf_max = torch.where(cmask, corners, -inf).amax(dim=(1, 2))
+
+    rec = accel.nodes_flat.reshape(W, 32)
+    ptr = rec[:, 24:28]
+    empty = torch.isnan(rec[:, 0:24:6])  # [W, 4]: NaN-boxed at pack time
+    leaf_slot = (~empty) & (ptr < 0.0)
+    leaf_row = (-ptr - 1.0).to(torch.int64).clamp(min=0)
+    child_id = ptr.clamp(min=0.0).to(torch.int64)
+    lmin, lmax = leaf_min[leaf_row], leaf_max[leaf_row]  # [W, 4, 3]
+    ls, em = leaf_slot[..., None], empty[..., None]
+    smin = torch.where(ls, lmin, inf)
+    smax = torch.where(ls, lmax, -inf)
+    for _ in range(max(accel.max_depth, 1)):
+        rmin = torch.where(em, inf, smin).amin(dim=1)  # [W, 3]
+        rmax = torch.where(em, -inf, smax).amax(dim=1)
+        smin = torch.where(ls, lmin, torch.where(em, nan, rmin[child_id]))
+        smax = torch.where(ls, lmax, torch.where(em, nan, rmax[child_id]))
+
+    new_rec = rec.clone()
+    for s in range(4):
+        new_rec[:, 6 * s:6 * s + 3] = smin[:, s]
+        new_rec[:, 6 * s + 3:6 * s + 6] = smax[:, s]
+    return dataclasses.replace(accel, nodes_flat=new_rec.reshape(-1),
+                               tris=new_rows.reshape(accel.tris.shape))
+
+
 def check_stack(accel: QuadAccel, cfg) -> None:
     """Stack guard (pallas_quad.py:875-882), also bounded by the kernel's
     fixed per-thread capacity."""
@@ -307,10 +364,12 @@ def _leaf_tests(o, d, trow):
 
 
 def _walk_reference(origin, direction, max_dist, accel: QuadAccel,
-                    occluded: bool, stack_depth: int):
+                    occluded: bool, stack_depth: int, stats=None):
     """Per-ray ordered stack walk over `accel`, vectorised over the rays
     still walking.  Returns (t [R] f32, tri [R] int32) for nearest mode and
-    (unused, occ [R] int32) for occluded mode, as the kernel does."""
+    (unused, occ [R] int32) for occluded mode, as the kernel does.  With a
+    `stats` dict, adds the records visited and triangles tested to its
+    "node_visits" and "tri_tests"."""
     R = origin.shape[0]
     dev = origin.device
     out_t = torch.full((R,), T_MAX, dtype=torch.float32, device=dev)
@@ -335,8 +394,10 @@ def _walk_reference(origin, direction, max_dist, accel: QuadAccel,
     best_t = torch.full((n,), T_MAX, dtype=torch.float32, device=dev)
     best_i = torch.zeros((n,), dtype=torch.int32, device=dev)
     occ = torch.zeros((n,), dtype=torch.bool, device=dev)
+    visits = tests = 0
 
     while n:
+        visits += n
         rows = torch.arange(n, device=dev)
         ray = (o[:, 0], o[:, 1], o[:, 2], inv[:, 0], inv[:, 1], inv[:, 2])
         sp = sp - 1
@@ -357,6 +418,7 @@ def _walk_reference(origin, direction, max_dist, accel: QuadAccel,
             sel = torch.nonzero(hits[s] & (ptrs[s] < 0.0)).squeeze(1)
             if sel.numel() == 0:
                 continue
+            tests += 8 * sel.numel()
             row = (-ptrs[s][sel] - 1.0).to(torch.int64)
             th, tt, toid = _leaf_tests(o[sel], d[sel], trows[row])
             if occluded:
@@ -413,26 +475,30 @@ def _walk_reference(origin, direction, max_dist, accel: QuadAccel,
         stack, sp, best_t, best_i, occ = (
             x[keep] for x in (stack, sp, best_t, best_i, occ))
         n = ids.numel()
+    if stats is not None:
+        stats["node_visits"] = stats.get("node_visits", 0) + visits
+        stats["tri_tests"] = stats.get("tri_tests", 0) + tests
     return out_t, out_i
 
 
-def quad_nearest_reference(origin, direction, accel: QuadAccel, cfg):
+def quad_nearest_reference(origin, direction, accel: QuadAccel, cfg,
+                           stats=None):
     """Plain PyTorch nearest hit: (hit, t, tri)."""
     check_stack(accel, cfg)
     md = torch.zeros((origin.shape[0],), dtype=torch.float32,
                      device=origin.device)
     t, tri = _walk_reference(origin, direction, md, accel, False,
-                             cfg.bvh_stack_depth)
+                             cfg.bvh_stack_depth, stats)
     hit = t < T_MAX
     return hit, t, torch.where(hit, tri, torch.zeros_like(tri))
 
 
 def quad_occluded_reference(origin, direction, max_dist, accel: QuadAccel,
-                            cfg):
+                            cfg, stats=None):
     """Plain PyTorch any-hit query: occluded [R] bool."""
     check_stack(accel, cfg)
     _, occ = _walk_reference(origin, direction, max_dist, accel, True,
-                             cfg.bvh_stack_depth)
+                             cfg.bvh_stack_depth, stats)
     return occ.bool()
 
 
@@ -442,18 +508,10 @@ def quad_occluded_reference(origin, direction, max_dist, accel: QuadAccel,
 
 
 def _check_inputs(origin, direction, max_dist, accel: QuadAccel):
+    from dpt_tpu_torch.kernels.build import check_rays
+
+    check_rays(origin, direction, max_dist)
     dev = origin.device
-    R = origin.shape[0]
-    for name, x, shape in (("origin", origin, (R, 3)),
-                           ("direction", direction, (R, 3)),
-                           ("max_dist", max_dist, (R,))):
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(x.shape)}")
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, origin on {dev}")
     for name, x in (("nodes_flat", accel.nodes_flat), ("tris", accel.tris)):
         if x.dtype != torch.float32:
             raise TypeError(f"accel.{name} must be float32, got {x.dtype}")
@@ -467,32 +525,13 @@ def _check_inputs(origin, direction, max_dist, accel: QuadAccel):
 
 def _launch(origin, direction, max_dist, accel: QuadAccel, occluded: bool):
     """Launch K1 on the current stream: (t [R] f32, tri/occ [R] int32)."""
-    from dpt_tpu_torch.kernels.build import load_library
+    from dpt_tpu_torch.kernels.build import launch_walk
 
-    R = origin.shape[0]
-    out_t = torch.empty((R,), dtype=torch.float32, device=origin.device)
-    out_i = torch.empty((R,), dtype=torch.int32, device=origin.device)
-    if R == 0:
-        return out_t, out_i
-    tensors = [x.contiguous() for x in
-               (origin, direction, max_dist, accel.nodes_flat, accel.tris)]
-    for x in tensors[3:]:
-        if x.data_ptr() % 16:
-            raise ValueError("accel tables must be 16-byte aligned")
-    lib = load_library()
-    stream = torch.cuda.current_stream(origin.device).cuda_stream
-    err = lib.dpt_quad_traverse(
-        *(ctypes.c_void_p(x.data_ptr()) for x in tensors),
-        ctypes.c_int(R), ctypes.c_int(int(occluded)),
-        ctypes.c_void_p(out_t.data_ptr()), ctypes.c_void_p(out_i.data_ptr()),
-        ctypes.c_void_p(stream),
-    )
-    if err != 0:
-        raise RuntimeError(
-            f"quad_traverse launch failed: cudaError {err} "
-            f"({lib.dpt_cuda_error_string(err).decode()})")
-    launch_counts["occluded" if occluded else "nearest"] += 1
-    return out_t, out_i
+    out = launch_walk("quad_traverse", origin, direction, max_dist,
+                      accel.nodes_flat, accel.tris, occluded)
+    if origin.shape[0]:
+        launch_counts["occluded" if occluded else "nearest"] += 1
+    return out
 
 
 def _dispatch(origin, direction, max_dist, accel, cfg, occluded: bool):

@@ -1,9 +1,14 @@
-"""The path-tracing integrator, forward only.
+"""The path-tracing integrator: masked, differentiable, with a query tape.
 
-Counterpart of `dpt_tpu/render/integrator.py` without the query tape:
-every lane advances in lockstep through the bounces with an `active` mask
-and consumes an identical RNG draw schedule.  The JAX `lax.scan` over
-bounces is a Python loop here.
+Counterpart of `dpt_tpu/render/integrator.py`: every lane advances in
+lockstep through the bounces with an `active` mask and consumes an
+identical RNG draw schedule.  The JAX `lax.scan` over bounces is a Python
+loop here.
+
+Gradient convention (fixed-hit detach): which triangle is nearest, the
+hit/miss masks and shadow visibility are detached; t, barycentrics,
+positions, normals and shading are recomputed differentiably for the
+selected triangle (intersect.reintersect).
 
 Stages per bounce (reference cites, raytrace_comp.comp):
   - nearest-hit search                (traceRay, :159-204)
@@ -22,6 +27,16 @@ scattered back over zeros.  Every lane that misses at bounce 0 contributes
 exactly zero from the whole loop, so this is exact per lane.  (The JAX
 package compacts into a static capacity with chunked overflow, because XLA
 needs static shapes; PyTorch does not.)
+
+Query tape: since every traversal outcome is detached, a render is a
+deterministic function of (params, seed) and of those outcomes.
+`trace_paths(..., tape="record")` also returns every outcome (a nearest
+query as one int32 per lane, the triangle or -1, plus `t` for the primary;
+an occluded query as its bool), and `trace_paths(..., tape=<that tape>)`
+plays the render back without a single traversal or per-query sort.  The
+playback recomputes `n_live` and the compaction permutation from the taped
+primary (`hit`, `t`), so its bounces run on the same lanes in the same
+order as the recording.
 """
 
 from __future__ import annotations
@@ -29,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from dpt_tpu_torch.config import RenderConfig
-from dpt_tpu_torch.render.intersect import reintersect
+from dpt_tpu_torch.render.intersect import reintersect, rows
 from dpt_tpu_torch.render.rng import MASK32, rng_next
 from dpt_tpu_torch.render.sampling import (
     intersect_area_light,
@@ -44,12 +59,67 @@ _FAR = 1e9
 _UP_Z = [0.0, 0.0, 1.0]
 
 
+class QueryTape:
+    """Record or substitute the detached outcome of every nearest/occluded
+    call, in call order.
+
+    mode "off"    — pass through (the plain render).
+    mode "record" — call the real query and append its outcome.
+    mode "play"   — never call the query; return the next recorded outcome.
+
+    A nearest outcome is stored as one int32 per lane (the triangle where
+    hit, else -1); playback decodes a miss to tri 0, which every consumer
+    masks, and carries t = 0, which reintersect re-derives.  The primary
+    trace, whose `t` the compaction needs, is taped by `trace_paths`.
+    """
+
+    def __init__(self, mode: str, entries=None):
+        if mode not in ("off", "record", "play"):
+            raise ValueError(f"unknown tape mode {mode!r}")
+        self.mode = mode
+        self.entries = list(entries) if entries is not None else []
+        self._i = 0
+
+    def _next(self):
+        e = self.entries[self._i]
+        self._i += 1
+        return e
+
+    def nearest(self, fn, o, d):
+        if self.mode == "play":
+            tri1 = self._next()
+            return {"hit": tri1 >= 0, "tri": tri1.clamp(min=0),
+                    "t": torch.zeros(tri1.shape, dtype=torch.float32,
+                                     device=tri1.device)}
+        rec = fn(o, d)
+        if self.mode == "record":
+            self.entries.append(_tri_or_miss(rec))
+        return rec
+
+    def occluded(self, fn, o, d, max_dist):
+        if self.mode == "play":
+            return self._next()
+        occ = fn(o, d, max_dist)
+        if self.mode == "record":
+            self.entries.append(occ)
+        return occ
+
+
+_TAPE_OFF = QueryTape("off")
+
+
+def _tri_or_miss(rec):
+    """A nearest record's taped form: the triangle where hit, else -1."""
+    return torch.where(rec["hit"], rec["tri"], torch.full_like(rec["tri"], -1))
+
+
 def _masked_query(o, d, active):
     """Move inactive lanes' origins far outside every AABB (1e9) and pin
-    their direction to +z, so every box test misses at once."""
+    their direction to +z, so every box test misses at once.  The query
+    inputs are detached: the search only selects."""
     m = active[:, None]
-    o = torch.where(m, o, torch.full_like(o, _FAR))
-    d = torch.where(m, d, vec3(_UP_Z, d))
+    o = torch.where(m, o.detach(), torch.full_like(o, _FAR))
+    d = torch.where(m, d.detach(), vec3(_UP_Z, d))
     return o, d
 
 
@@ -73,12 +143,12 @@ def _light(scene, i):
 
 
 def _nee_one_light(state, pos, normal, albedo, light_i, occluded, offset,
-                   mask, view=None, rough=None):
+                   mask, view=None, rough=None, tio=_TAPE_OFF):
     """Direct lighting from one area light (raytrace_comp.comp:345-366).
 
-    Returns (state, contribution [R,3]).  Visibility is an any-hit query;
-    masked lanes get max_dist = -1.  With `view`/`rough` the Lambert term
-    is scaled by the Oren–Nayar factor.
+    Returns (state, contribution [R,3]).  Visibility is a detached any-hit
+    query; masked lanes get max_dist = -1.  With `view`/`rough` the Lambert
+    term is scaled by the Oren–Nayar factor.
     """
     lpos, lnormal, lint, lsize = light_i
     state, lpoint = sample_area_light(lpos, lnormal, lsize, state)
@@ -89,10 +159,10 @@ def _nee_one_light(state, pos, normal, albedo, light_i, occluded, offset,
     if view is not None and rough is not None:
         diffuse = diffuse * oren_nayar_factor(normal, ldir, view, rough)
 
-    shadow_o = pos + normal * offset
-    occ = occluded(shadow_o, ldir,
-                   torch.where(mask, ldist - offset,
-                               torch.full_like(ldist, -1.0)))
+    shadow_o = (pos + normal * offset).detach()
+    occ = tio.occluded(occluded, shadow_o, ldir.detach(),
+                       torch.where(mask, ldist.detach() - offset,
+                                   torch.full_like(ldist, -1.0)))
 
     dist_sq = torch.clamp(ldist * ldist, min=0.01)  # falloff floor, :363
     contrib = albedo * lint * (diffuse / dist_sq)[:, None]
@@ -118,7 +188,8 @@ def _direct_view_pass(origin, direction, scene, prim):
 
 
 def _sss_walk(state, hit_pos, hit_normal, sss_albedo, sss_radius, throughput,
-              hit_mask, scene, nearest, occluded, cfg: RenderConfig):
+              hit_mask, scene, nearest, occluded, cfg: RenderConfig,
+              tio=_TAPE_OFF):
     """Subsurface random walk (raytrace_comp.comp:370-408).
 
     Fires cfg.sss_bounces sub-steps below the surface; per step, NEE to every
@@ -136,7 +207,7 @@ def _sss_walk(state, hit_pos, hit_normal, sss_albedo, sss_radius, throughput,
     weight = (1.0 + sss_radius * 0.5)[:, None]  # :404
 
     for _ in range(cfg.sss_bounces):
-        found = nearest(*_masked_query(o, d, sss_active))
+        found = tio.nearest(nearest, *_masked_query(o, d, sss_active))
         sh = found["hit"] & sss_active
         rec = _safe_hit(
             reintersect(o, d, found["tri"], scene.vertices, scene.indices,
@@ -150,7 +221,7 @@ def _sss_walk(state, hit_pos, hit_normal, sss_albedo, sss_radius, throughput,
         for i in range(scene.lights.count):
             state, c = _nee_one_light(
                 state, cur, sn, sss_albedo, _light(scene, i), occluded,
-                cfg.offset, sh,
+                cfg.offset, sh, tio=tio,
             )
             sss_light = sss_light + c
         radiance_add = (radiance_add
@@ -171,14 +242,15 @@ def make_bounce_body(scene, nearest, occluded, cfg: RenderConfig):
     """One bounce of the path loop over the carry
     (origin, direction, throughput, radiance, active, rng_state).
 
-    `body(carry, depth, found=None)` accepts a precomputed nearest-hit
-    record so bounce 0 can reuse the primary trace."""
+    `body(carry, depth, found=None, tio=...)` accepts a precomputed
+    nearest-hit record so bounce 0 can reuse the primary trace, and a
+    QueryTape that records or substitutes every query."""
 
-    def body(carry, depth, found=None):
+    def body(carry, depth, found=None, tio=_TAPE_OFF):
         o, d, throughput, radiance, active, state = carry
 
         if found is None:
-            found = nearest(*_masked_query(o, d, active))
+            found = tio.nearest(nearest, *_masked_query(o, d, active))
         hit = found["hit"] & active
         rec = reintersect(o, d, found["tri"], scene.vertices, scene.indices,
                           cfg.eps,
@@ -187,9 +259,9 @@ def make_bounce_body(scene, nearest, occluded, cfg: RenderConfig):
         rec = _safe_hit(rec, hit)
         pos, normal = rec["position"], rec["normal"]
         mat = scene.mat_idx[found["tri"].long()].long()
-        albedo = scene.materials.albedo[mat]
-        emission = scene.materials.emission[mat]
-        rough = scene.materials.roughness[mat]
+        albedo = rows(scene.materials.albedo, mat)
+        emission = rows(scene.materials.emission, mat)
+        rough = rows(scene.materials.roughness, mat)
         view = -d  # toward the camera along the incoming ray
         if cfg.uv_texture == "checker":
             albedo = checker_albedo(
@@ -207,7 +279,7 @@ def make_bounce_body(scene, nearest, occluded, cfg: RenderConfig):
         for i in range(scene.lights.count):
             state, c = _nee_one_light(
                 state, pos, normal, albedo, _light(scene, i), occluded,
-                cfg.offset, hit, view=view, rough=rough,
+                cfg.offset, hit, view=view, rough=rough, tio=tio,
             )
             direct = direct + c
         radiance = radiance + throughput * direct
@@ -216,9 +288,9 @@ def make_bounce_body(scene, nearest, occluded, cfg: RenderConfig):
         if cfg.enable_sss:
             state, sss_add = _sss_walk(
                 state, pos, normal,
-                scene.materials.sss_albedo[mat],
-                scene.materials.sss_radius[mat],
-                throughput, hit, scene, nearest, occluded, cfg,
+                rows(scene.materials.sss_albedo, mat),
+                rows(scene.materials.sss_radius, mat),
+                throughput, hit, scene, nearest, occluded, cfg, tio=tio,
             )
             radiance = radiance + sss_add
 
@@ -248,24 +320,80 @@ def make_bounce_body(scene, nearest, occluded, cfg: RenderConfig):
     return body
 
 
-def _run_bounces(body, carry, prim, cfg: RenderConfig):
-    """Bounce 0 on the shared primary record, then bounces 1..max_depth-1;
-    returns the radiance [R, 3]."""
-    carry = body(carry, 0, found=prim)
-    for depth in range(1, cfg.max_depth):
-        carry = body(carry, depth)
+def _checkpointed(fn, *args):
+    """fn(*args) under torch.utils.checkpoint when autograd records: the
+    backward recomputes it instead of keeping its activations.  The RNG is
+    a counter in the carry, so the recomputation is exact."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _run_bounces(body, carry, prim, cfg: RenderConfig, mode: str,
+                 tape_bounces=None):
+    """Bounce 0 on the shared primary record, then bounces 1..max_depth-1.
+
+    mode "off" and "play" return the radiance [R, 3] (remat per bounce
+    under cfg.remat_bounces); "record" returns (radiance, [entries of each
+    bounce]).  `tape_bounces` holds those entries for "play"."""
+    recorded = []
+
+    def step(depth, found, entries, *c):
+        tio = QueryTape(mode, entries)
+        out = body(c, depth, found=found, tio=tio)
+        if mode == "record":
+            recorded.append(tuple(tio.entries))
+        return out
+
+    for depth in range(cfg.max_depth):
+        found = prim if depth == 0 else None
+        entries = tape_bounces[depth] if mode == "play" else None
+        if mode != "record" and cfg.remat_bounces:
+            carry = _checkpointed(
+                lambda *c, d=depth, f=found, e=entries: step(d, f, e, *c),
+                *carry)
+        else:
+            carry = step(depth, found, entries, *carry)
+    if mode == "record":
+        return carry[3], recorded
     return carry[3]
 
 
+def _live_permutation(prim, origin, direction, scene):
+    """The lanes whose primary ray hit, in Morton order of the hit position
+    (one stable argsort; the number of lanes is taken on the host).  A
+    playback calls it on the taped primary (hit, t) and so gets the
+    recording's lanes in the recording's order."""
+    from dpt_tpu_torch.render.compaction import morton3d
+
+    hit0 = prim["hit"]
+    n_live = int(hit0.sum())
+    verts = scene.vertices.detach()
+    pos_key = origin.detach() + prim["t"][:, None] * direction.detach()
+    key = torch.where(hit0, morton3d(pos_key, verts.min(dim=0).values,
+                                     verts.max(dim=0).values),
+                      torch.full_like(hit0, MASK32, dtype=torch.int64))
+    return torch.argsort(key, stable=True)[:n_live]
+
+
 def trace_paths(origin, direction, state, scene, nearest, cfg: RenderConfig,
-                occluded=None):
+                occluded=None, tape=None):
     """Full per-sample radiance estimate (pathTrace, :300-418).
 
-    origin/direction: [R, 3] f32; state: [R] int64 RNG.  Returns radiance
-    [R, 3].
+    origin/direction: [R, 3] f32; state: [R] int64 RNG.
+    tape: None (plain render), "record" (returns (radiance, tape)), or a
+    tape recorded earlier (playback: `nearest`/`occluded` may be None and
+    no traversal or per-query sort runs).  Returns radiance [R, 3] (and the
+    tape when recording).
     """
+    record = tape == "record"
+    play = tape is not None and not record
+    mode = "record" if record else ("play" if play else "off")
     R = origin.shape[0]
-    if occluded is None:
+    if occluded is None and not play:
         def occluded(o, d, max_dist):  # any-hit via the nearest-hit search
             s = nearest(o, d)
             return s["hit"] & (s["t"] < max_dist)
@@ -276,34 +404,46 @@ def trace_paths(origin, direction, state, scene, nearest, cfg: RenderConfig,
 
     # One primary trace shared by the direct-view pass and bounce 0; the
     # primary stream keeps raster order (no coherence sort).
-    prim = getattr(nearest, "unsorted", nearest)(origin, direction)
+    if play:
+        tri1 = tape["prim"]["tri1"]
+        prim = {"hit": tri1 >= 0, "tri": tri1.clamp(min=0),
+                "t": tape["prim"]["t"]}
+    else:
+        prim = getattr(nearest, "unsorted", nearest)(origin.detach(),
+                                                     direction.detach())
+    tape_out = {}
+    if record:
+        tape_out["prim"] = {"tri1": _tri_or_miss(prim), "t": prim["t"]}
     if cfg.direct_light_view:
-        dv_done, dv_value = _direct_view_pass(origin, direction, scene, prim)
+        dv_done, dv_value = _direct_view_pass(origin.detach(),
+                                              direction.detach(), scene, prim)
     else:
         dv_done = torch.zeros((R,), dtype=torch.bool, device=origin.device)
         dv_value = radiance
 
     body = make_bounce_body(scene, nearest, occluded, cfg)
     carry = (origin, direction, throughput, radiance, active, state)
+    tape_bounces = tape["bounces"] if play else None
 
     if cfg.compact_frac > 0:
-        from dpt_tpu_torch.render.compaction import morton3d
-
-        hit0 = prim["hit"] & active
-        n_live = int(hit0.sum())
-        bmin = scene.vertices.min(dim=0).values
-        bmax = scene.vertices.max(dim=0).values
-        pos_key = origin + prim["t"][:, None] * direction
-        key = torch.where(hit0, morton3d(pos_key, bmin, bmax),
-                          torch.full_like(hit0, MASK32, dtype=torch.int64))
-        perm = torch.argsort(key, stable=True)[:n_live]
+        perm = _live_permutation(prim, origin, direction, scene)
+        n_live = perm.numel()
         radiance = torch.zeros_like(origin)
+        tape_out["bounces"] = []
         if n_live:
             carry_c = tuple(x.index_select(0, perm) for x in carry)
             prim_c = {k: v.index_select(0, perm) for k, v in prim.items()}
-            radiance = radiance.index_copy(
-                0, perm, _run_bounces(body, carry_c, prim_c, cfg))
+            out = _run_bounces(body, carry_c, prim_c, cfg, mode,
+                               tape_bounces)
+            if record:
+                out, tape_out["bounces"] = out
+            radiance = radiance.index_copy(0, perm, out)
     else:
-        radiance = _run_bounces(body, carry, prim, cfg)
+        radiance = _run_bounces(body, carry, prim, cfg, mode, tape_bounces)
+        if record:
+            radiance, tape_out["bounces"] = radiance
 
-    return torch.where(dv_done[:, None], dv_value, radiance)
+    radiance = torch.where(dv_done[:, None], dv_value, radiance)
+    if record:
+        return radiance, tape_out
+    return radiance

@@ -8,6 +8,7 @@ the re-intersection of the selected triangle.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from dpt_tpu_torch.render.sampling import normalize
 
@@ -83,6 +84,17 @@ def brute_force_occluded(origin, direction, max_dist, tri_v0, tri_v1, tri_v2,
     return (hit & (t < max_dist[:, None])).any(dim=1)
 
 
+def rows(table, idx):
+    """table[idx] along dim 0 (table [N] or [N, C], idx [R] int64), as an
+    embedding lookup: many lanes share a row (every lane of one material,
+    the lanes that hit one triangle), and the backward of an embedding sums
+    each run of equal indices in parallel, where advanced indexing's
+    backward sums a run one element after another."""
+    if table.dim() == 1:
+        return F.embedding(idx, table[:, None])[:, 0]
+    return F.embedding(idx, table)
+
+
 def reintersect(origin, direction, tri_idx, vertices, indices, eps=1e-6,
                 uvs=None):
     """Re-intersect the *selected* triangle.
@@ -95,9 +107,9 @@ def reintersect(origin, direction, tri_idx, vertices, indices, eps=1e-6,
     """
     tri_idx = tri_idx.long()
     idx = indices[tri_idx].long()  # [R, 3]
-    v0 = vertices[idx[:, 0]]
-    v1 = vertices[idx[:, 1]]
-    v2 = vertices[idx[:, 2]]
+    v0 = rows(vertices, idx[:, 0])
+    v1 = rows(vertices, idx[:, 1])
+    v2 = rows(vertices, idx[:, 2])
     _, t, u, v = moller_trumbore(origin, direction, v0, v1, v2, eps)
     position = origin + direction * t[:, None]
     n = normalize(torch.linalg.cross(v1 - v0, v2 - v0, dim=-1))

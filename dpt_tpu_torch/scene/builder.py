@@ -2,7 +2,9 @@
 
 Counterpart of `dpt_tpu/scene/builder.py` for the procedural scenes
 (`cornell_box_scene`, `procedural_scene`, `knot_scene`).  OBJ loading
-(`load_scene`, `scene/obj.py`) is not ported yet (ROADMAP Queue 1).
+(`load_scene`, `scene/obj.py`) is not ported yet (ROADMAP Queue 1 item 7).
+Every builder defaults to the card (`device="cuda"`) and raises when there
+is none; pass `device="cpu"` for the CPU.
 """
 
 from __future__ import annotations
@@ -11,11 +13,18 @@ import numpy as np
 import torch
 
 from dpt_tpu_torch.scene import procedural
-from dpt_tpu_torch.scene.scene import Lights, Materials, Scene, default_lights
+from dpt_tpu_torch.scene.scene import (
+    Lights,
+    Materials,
+    Scene,
+    default_lights,
+    resolve_device,
+)
 
 
 def _scene_from_arrays(vertices, indices, uvs=None, mat_idx=None,
-                       materials=None, lights=None, device="cpu") -> Scene:
+                       materials=None, lights=None, device="cuda") -> Scene:
+    device = resolve_device(device)
     n_tri = len(indices)
     if uvs is None:
         uvs = np.zeros((n_tri, 3, 2), np.float32)
@@ -37,7 +46,7 @@ def _scene_from_arrays(vertices, indices, uvs=None, mat_idx=None,
     )
 
 
-def cornell_box_scene(lights: Lights | None = None, device="cpu") -> Scene:
+def cornell_box_scene(lights: Lights | None = None, device="cuda") -> Scene:
     """±1 cube + the reference's single area light — the box.obj setup
     (scenes/box.obj, VulkanRayTracer.cpp:149-162)."""
     v, idx = procedural.box_mesh()
@@ -45,7 +54,7 @@ def cornell_box_scene(lights: Lights | None = None, device="cpu") -> Scene:
 
 
 def procedural_scene(n_tris_target: int = 65_000,
-                     lights: Lights | None = None, device="cpu") -> Scene:
+                     lights: Lights | None = None, device="cuda") -> Scene:
     """Sylveon-class stand-in scene (the reference asset is missing from the
     snapshot; see BASELINE.md).  The default target gives 64,008 triangles;
     bench.py's flagship target of 66,000 gives 65,024."""
@@ -56,7 +65,7 @@ def procedural_scene(n_tris_target: int = 65_000,
 
 
 def knot_scene(n_tris_target: int = 65_000,
-               lights: Lights | None = None, device="cpu") -> Scene:
+               lights: Lights | None = None, device="cuda") -> Scene:
     """Second Sylveon-class family: a self-shadowing (2,3) torus knot."""
     # 2 * n_seg * n_ring ≈ target with n_seg = 8 n_ring.
     n_ring = max(int(np.sqrt(n_tris_target / 16.0)), 8)

@@ -13,7 +13,12 @@ import math
 import numpy as np
 import torch
 
-from dpt_tpu_torch.scene.scene import check_dtypes, f32, to_device
+from dpt_tpu_torch.scene.scene import (
+    check_dtypes,
+    f32,
+    resolve_device,
+    to_device,
+)
 
 
 @dataclasses.dataclass
@@ -101,12 +106,13 @@ class OrbitCamera:
     def _up_np(self):
         return _quat_rotate(self._rotation(), (0.0, 1.0, 0.0))
 
-    def camera(self, device="cpu") -> Camera:
+    def camera(self, device="cuda") -> Camera:
         """Lower to the float32 Camera consumed by the renderer.
 
         Direction points at the origin (Camera.cpp:90-95); up is the rotated
         +Y (Camera.cpp:97-101).
         """
+        device = resolve_device(device)
         pos = self._position_np()
         direction = -pos / max(np.linalg.norm(pos), 1e-20)
         return Camera(

@@ -29,6 +29,16 @@ def check_dtypes(obj) -> None:
                 )
 
 
+def tensors(obj):
+    """Every tensor of a tensor dataclass, nested dataclasses included."""
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            yield v
+        elif dataclasses.is_dataclass(v):
+            yield from tensors(v)
+
+
 def to_device(obj, device):
     """Copy of a tensor dataclass with every tensor (and nested tensor
     dataclass) moved to `device`."""
@@ -41,7 +51,22 @@ def to_device(obj, device):
     return dataclasses.replace(obj, **kw)
 
 
-def f32(a, device="cpu") -> torch.Tensor:
+# What every entry point says when it is asked for the card and there is
+# none (the CLI's `--device` defaults to cuda as the library does).
+NO_CUDA = ("no CUDA device is available; pass --device cpu (device='cpu') "
+           "to run on the CPU")
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; raises when it names CUDA and there is no
+    card.  Entry points default to "cuda" and never fall back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(NO_CUDA)
+    return device
+
+
+def f32(a, device) -> torch.Tensor:
     """float32 tensor copied from an array-like (float64 input is rounded
     once)."""
     return torch.as_tensor(np.array(a, np.float32), device=device)
@@ -86,8 +111,9 @@ class Materials:
         return to_device(self, device)
 
     @staticmethod
-    def default(n: int = 1, device="cpu") -> "Materials":
+    def default(n: int = 1, device="cuda") -> "Materials":
         # roughness is the Oren–Nayar sigma (render/shading.py); 0 = Lambert.
+        device = resolve_device(device)
         return Materials(
             albedo=torch.full((n, 3), 0.8, dtype=torch.float32, device=device),
             roughness=torch.zeros((n,), dtype=torch.float32, device=device),
@@ -135,9 +161,10 @@ class Scene:
 
 
 def make_area_lights(positions, normals, intensities, sizes,
-                     device="cpu") -> Lights:
+                     device="cuda") -> Lights:
     """Pack parallel lists into Lights (Light.cpp:16-33); normals are
     normalised on pack, as in Light.cpp:28."""
+    device = resolve_device(device)
     normals = np.asarray(normals, np.float32)
     normals = normals / np.maximum(
         np.linalg.norm(normals, axis=-1, keepdims=True), 1e-20
@@ -150,7 +177,7 @@ def make_area_lights(positions, normals, intensities, sizes,
     )
 
 
-def default_lights(device="cpu") -> Lights:
+def default_lights(device="cuda") -> Lights:
     """The reference's single hardcoded area light (VulkanRayTracer.cpp:
     149-162): position (0, 2, 0), normal (0, -1, 0), intensity (10, 10, 10),
     size 2.5x2.5."""

@@ -59,12 +59,12 @@ def cuda():
 
 def _scene(kind):
     if kind == "box":
-        return T.cornell_box_scene()
+        return T.cornell_box_scene(device="cpu")
     if kind == "sphere":
-        return T.procedural_scene(n_tris_target=2_000)
+        return T.procedural_scene(n_tris_target=2_000, device="cpu")
     if kind == "knot":
-        return knot_scene(n_tris_target=2_000)
-    return T.procedural_scene(n_tris_target=8)
+        return knot_scene(n_tris_target=2_000, device="cpu")
+    return T.procedural_scene(n_tris_target=8, device="cpu")
 
 
 def _corners(scene):
@@ -79,7 +79,7 @@ def _port_tables(case):
     v, idx, corners = _corners(scene)
     build = tb.build_bvh_median if builder == "median" else tb.build_bvh_sah
     bvh = build(v, idx, leaf_size=leaf)
-    return scene, bvh, tq.pack_quad(bvh, *corners)
+    return scene, bvh, tq.pack_quad(bvh, *corners, device="cpu")
 
 
 def _jax_tables(jx, case, scene):
@@ -122,7 +122,7 @@ def test_bvh_builders_identical(jx, case):
 
 @pytest.mark.parametrize("builder", ["median", "sah"])
 def test_bvh_builders_identical_other_leaf_sizes(jx, builder):
-    scene = T.procedural_scene(n_tris_target=1_500)
+    scene = T.procedural_scene(n_tris_target=1_500, device="cpu")
     v, idx, _ = _corners(scene)
     for leaf in (1, 3):
         jb = getattr(jx.bvh, f"build_bvh_{builder}")(v, idx, leaf_size=leaf,
@@ -158,10 +158,41 @@ def _check_ties(o, d, scene, t_port, tri_port, tri_ref, hit):
                                    rtol=1e-5, atol=1e-6)
 
 
+@pytest.fixture(scope="module")
+def jax_walk_tables(jx):
+    """case -> (scene, port tables, JAX tables).  The JAX tables are padded
+    with unreachable NaN-boxed records and zero leaf rows to one common
+    shape, with common static n_wide / max_depth, so the interpreted kernel
+    compiles once per mode for all cases."""
+    out = {}
+    for case in CASES:
+        scene, _, acc_t = _port_tables(case)
+        out[case] = (scene, acc_t, _jax_tables(jx, case, scene)[1])
+    w = max(a.n_wide for _, _, a in out.values())
+    w = -(-w // 4) * 4
+    rows_t = max(a.tris.shape[0] for _, _, a in out.values())
+    depth = max(a.max_depth for _, _, a in out.values())
+    empty = np.zeros(32, np.float32)
+    empty[:24] = np.nan
+
+    def pad(acc_j):
+        flat = np.asarray(acc_j.nodes_flat).reshape(-1, 32)
+        flat = np.concatenate([flat, np.tile(empty, (w - len(flat), 1))])
+        tris = np.asarray(acc_j.tris)
+        tris = np.concatenate(
+            [tris, np.zeros((rows_t - len(tris), 128), np.float32)])
+        return dataclasses.replace(
+            acc_j, nodes=jx.jnp.asarray(flat.reshape(-1, 128)),
+            nodes_flat=jx.jnp.asarray(flat.reshape(-1)),
+            tris=jx.jnp.asarray(tris), n_wide=w, max_depth=depth)
+
+    return {c: (scene, acc_t, pad(acc_j))
+            for c, (scene, acc_t, acc_j) in out.items()}
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_plain_walk_matches_jax_kernel(jx, case):
-    scene, _, acc_t = _port_tables(case)
-    _, acc_j = _jax_tables(jx, case, scene)
+def test_plain_walk_matches_jax_kernel(jx, jax_walk_tables, case):
+    scene, acc_t, acc_j = jax_walk_tables[case]
     spread = 3.0 if case == "box-median4" else 1.5
     o, d, md = _rays(N_RAYS, seed=len(case), spread=spread)
     jo, jd, jmd = (jx.jnp.asarray(x.numpy()) for x in (o, d, md))
@@ -223,7 +254,7 @@ def _three_tri_bvh():
 def test_empty_slots_beside_leaves(jx):
     v, idx, fields = _three_tri_bvh()
     corners = (v[idx[:, 0]], v[idx[:, 1]], v[idx[:, 2]])
-    acc_t = tq.pack_quad(tb.BVH(**fields), *corners)
+    acc_t = tq.pack_quad(tb.BVH(**fields), *corners, device="cpu")
     acc_j = jx.quad.pack_quad(jx.bvh.BVH(**fields), *corners)
     assert acc_t.nodes_flat.numpy().tobytes() == np.asarray(
         acc_j.nodes_flat).tobytes()
@@ -243,8 +274,8 @@ def test_empty_slots_beside_leaves(jx):
     scene = T.Scene(vertices=torch.as_tensor(v), indices=torch.as_tensor(idx),
                     uvs=torch.zeros((3, 3, 2)),
                     mat_idx=torch.zeros(3, dtype=torch.int32),
-                    materials=T.Materials.default(),
-                    lights=T.default_lights())
+                    materials=T.Materials.default(device="cpu"),
+                    lights=T.default_lights(device="cpu"))
     v0, v1, v2 = scene.tri_vertices()
     bh, bt, bi, _, _ = brute_force_nearest(o, d, v0, v1, v2)
     qh, qt, qi = tq.quad_nearest(o, d, acc_t, CFG)

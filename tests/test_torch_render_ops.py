@@ -187,7 +187,7 @@ def test_generate_rays_matches(jx, dof, moved):
     jcfg = jx.pkg.RenderConfig(width=24, height=16, enable_dof=dof)
     tcfg = T.RenderConfig(width=24, height=16, enable_dof=dof)
     jo_, jd_, js_ = jx.raygen.generate_rays(jo.camera(), jcfg, 5)
-    to_, td_, ts__ = tr.generate_rays(to.camera(), tcfg, 5)
+    to_, td_, ts__ = tr.generate_rays(to.camera("cpu"), tcfg, 5)
     np.testing.assert_array_equal(np.asarray(js_).astype(np.int64),
                                   ts__.numpy())
     _close(jo_, to_)
@@ -234,7 +234,7 @@ def test_moller_trumbore_matches(jx):
 
 def test_reintersect_matches(jx):
     scene_j = jx.pkg.procedural_scene(n_tris_target=500)
-    scene_t = T.procedural_scene(n_tris_target=500)
+    scene_t = T.procedural_scene(n_tris_target=500, device="cpu")
     rng = np.random.default_rng(11)
     n = 1024
     tri = rng.integers(0, scene_t.n_triangles, n).astype(np.int32)

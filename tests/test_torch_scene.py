@@ -66,7 +66,7 @@ def test_presets_equal(jx, name):
 
 
 @pytest.mark.parametrize("over", [
-    {"traversal": "bvh"}, {"traversal": "packet"}, {"traversal": "pallas"},
+    {"traversal": "bvh"}, {"traversal": "packet"},
     {"traversal": "threaded"}, {"wavefront_sort": True},
     {"kernels": "intersect"},
 ])
@@ -78,13 +78,14 @@ def test_unported_options_raise(over):
 @pytest.mark.parametrize("which", ["box", "sphere", "knot"])
 def test_scene_arrays_identical(jx, which):
     if which == "box":
-        j, t = jx.builder.cornell_box_scene(), T.cornell_box_scene()
+        j = jx.builder.cornell_box_scene()
+        t = T.cornell_box_scene(device="cpu")
     elif which == "sphere":
         j = jx.builder.procedural_scene(n_tris_target=2_000)
-        t = T.procedural_scene(n_tris_target=2_000)
+        t = T.procedural_scene(n_tris_target=2_000, device="cpu")
     else:
         j = jx.builder.knot_scene(n_tris_target=2_000)
-        t = t_knot_scene(n_tris_target=2_000)
+        t = t_knot_scene(n_tris_target=2_000, device="cpu")
     for a, b in zip(_scene_arrays(j), _tensor_arrays(t)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
@@ -103,7 +104,7 @@ def test_camera_matches(jx, moves):
             j, t = j.zoom_update(m[1]), t.zoom_update(m[1])
     assert j.state_tuple() == t.state_tuple()
     assert j._correction == t._correction
-    jc, tc = j.camera(), t.camera()
+    jc, tc = j.camera(), t.camera("cpu")
     for f in ("position", "direction", "up", "fov_deg"):
         got = getattr(tc, f)
         assert got.dtype == torch.float32
@@ -115,14 +116,15 @@ def test_convert_round_trips(jx):
     from dpt_tpu.accel.bvh import build_accel as j_build_accel
 
     j = jx.builder.procedural_scene(n_tris_target=1_000)
-    t = scene_from_arrays(*_scene_arrays(j))
+    t = scene_from_arrays(*_scene_arrays(j), device="cpu")
     for a, b in zip(_scene_arrays(j), _tensor_arrays(t)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
 
     jc = jx.pkg.OrbitCamera().view_update(40.0, 10.0).camera()
     tc = camera_from_arrays(*(np.asarray(getattr(jc, f)) for f in
-                              ("position", "direction", "up", "fov_deg")))
+                              ("position", "direction", "up", "fov_deg")),
+                            device="cpu")
     assert tc.fov_deg.shape == ()
     for f in ("position", "direction", "up", "fov_deg"):
         np.testing.assert_array_equal(getattr(tc, f).numpy(),
@@ -132,14 +134,16 @@ def test_convert_round_trips(jx):
                               bvh_leaf_size=8)
     ja = j_build_accel(j, cfg)
     ta = quad_accel_from_arrays(np.asarray(ja.nodes_flat),
-                                np.asarray(ja.tris), ja.n_wide, ja.max_depth)
+                                np.asarray(ja.tris), ja.n_wide, ja.max_depth,
+                                device="cpu")
     np.testing.assert_array_equal(ta.nodes_flat.numpy(),
                                   np.asarray(ja.nodes_flat))
     np.testing.assert_array_equal(ta.tris.numpy(), np.asarray(ja.tris))
     assert (ta.n_wide, ta.max_depth) == (ja.n_wide, ja.max_depth)
     with pytest.raises(ValueError):
         quad_accel_from_arrays(np.zeros(31, np.float32),
-                               np.zeros((1, 128), np.float32), 1, 1)
+                               np.zeros((1, 128), np.float32), 1, 1,
+                               device="cpu")
 
 
 def test_import_leaves_jax_out():
@@ -148,6 +152,8 @@ def test_import_leaves_jax_out():
         "before = set(sys.modules)\n"
         "import dpt_tpu_torch, dpt_tpu_torch.cli, dpt_tpu_torch.utils.convert\n"
         "import dpt_tpu_torch.kernels.build, dpt_tpu_torch.render.integrator\n"
+        "import dpt_tpu_torch.kernels.wide, dpt_tpu_torch.diff.grads\n"
+        "import dpt_tpu_torch.diff.optimize, dpt_tpu_torch.utils.checkpoint\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'dpt_tpu'))\n"
@@ -174,8 +180,8 @@ def test_every_float_tensor_is_float32():
     from dpt_tpu_torch.accel.bvh import build_accel
     from dpt_tpu_torch.render.raygen import generate_rays
 
-    scene = T.procedural_scene(n_tris_target=500)
-    cam = T.OrbitCamera(yaw=10.0, pitch=5.0).camera()
+    scene = T.procedural_scene(n_tris_target=500, device="cpu")
+    cam = T.OrbitCamera(yaw=10.0, pitch=5.0).camera("cpu")
     cfg = T.RenderConfig(width=4, height=4, traversal="quad",
                          bvh_builder="sah", bvh_leaf_size=8)
     accel = build_accel(scene, cfg)
@@ -202,8 +208,8 @@ def _all_tensors(obj, prefix=""):
 
 
 def test_to_device_moves_every_tensor():
-    scene = T.cornell_box_scene()
-    cam = T.OrbitCamera().camera()
+    scene = T.cornell_box_scene(device="cpu")
+    cam = T.OrbitCamera().camera("cpu")
     for obj in (scene, cam):
         moved = obj.to("meta")
         names = [n for n, _ in _all_tensors(obj)]
@@ -215,3 +221,24 @@ def test_to_device_moves_every_tensor():
         assert all(v.device.type == "cpu" for _, v in _all_tensors(obj))
     assert scene.to("meta").lights.count == 1
     assert scene.to("meta").device.type == "meta"
+
+
+@pytest.mark.parametrize("make", [
+    lambda: T.cornell_box_scene(),
+    lambda: T.procedural_scene(n_tris_target=100),
+    lambda: t_knot_scene(n_tris_target=100),
+    lambda: T.default_lights(),
+    lambda: T.make_area_lights([[0, 1, 0]], [[0, -1, 0]], [[1, 1, 1]],
+                               [[1, 1]]),
+    lambda: T.Materials.default(),
+    lambda: T.OrbitCamera().camera(),
+], ids=["box", "sphere", "knot", "lights", "area_lights", "materials",
+        "camera"])
+def test_builders_default_to_the_card(make):
+    """Library entry points run on the card unless asked for the CPU; with
+    no card they raise with the CLI's message instead of falling back."""
+    if torch.cuda.is_available():
+        assert all(v.is_cuda for _, v in _all_tensors(make()))
+        return
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        make()

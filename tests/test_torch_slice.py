@@ -42,7 +42,7 @@ def _flagship(width=16, height=16, **over):
 
 @pytest.fixture(scope="module")
 def sphere():
-    scene = T.procedural_scene(n_tris_target=2_000)
+    scene = T.procedural_scene(n_tris_target=2_000, device="cpu")
     cfg = _flagship()
     return scene, cfg, build_accel(scene, cfg)
 
@@ -50,7 +50,7 @@ def sphere():
 def test_flagship_render_matches_jax(jx, sphere):
     scene, cfg, accel = sphere
     assert cfg.compact_frac > 0 and cfg.ray_sort and cfg.enable_sss
-    img = T.render_sample(scene, T.OrbitCamera().camera(), cfg, 0, accel)
+    img = T.render_sample(scene, T.OrbitCamera().camera("cpu"), cfg, 0, accel)
     jcfg = jx.pkg.preset("sylveon512", width=16, height=16, max_depth=4,
                          traversal="brute")
     ref = jx.renderer.render_sample(
@@ -64,7 +64,7 @@ def test_flagship_render_matches_jax(jx, sphere):
 
 def test_quad_matches_brute(sphere):
     scene, cfg, accel = sphere
-    cam = T.OrbitCamera(yaw=30.0).camera()
+    cam = T.OrbitCamera(yaw=30.0).camera("cpu")
     img_q = T.render_sample(scene, cam, cfg, 3, accel)
     img_b = T.render_sample(scene, cam, cfg.replace(traversal="brute"), 3)
     np.testing.assert_allclose(img_q.numpy(), img_b.numpy(), rtol=1e-4,
@@ -73,7 +73,7 @@ def test_quad_matches_brute(sphere):
 
 def test_compaction_is_exact_per_lane(sphere):
     scene, cfg, accel = sphere
-    cam = T.OrbitCamera().camera()
+    cam = T.OrbitCamera().camera("cpu")
     on = T.render_sample(scene, cam, cfg, 1, accel)
     off = T.render_sample(scene, cam, cfg.replace(compact_frac=0.0), 1, accel)
     assert torch.equal(on, off)
@@ -88,7 +88,8 @@ def _moved(pkg):
 
 
 def test_box_full_featured_matches_jax(jx):
-    img = T.render_sample(T.cornell_box_scene(), _moved(T).camera(),
+    img = T.render_sample(T.cornell_box_scene(device="cpu"),
+                          _moved(T).camera("cpu"),
                           T.RenderConfig(**FULL_FEATURED), 0)
     ref = jx.renderer.render_sample(
         jx.pkg.cornell_box_scene(), _moved(jx.pkg).camera(),
@@ -98,7 +99,8 @@ def test_box_full_featured_matches_jax(jx):
 
 
 def test_render_two_batches_matches_jax(jx):
-    img = T.render(T.cornell_box_scene(), _moved(T).camera(),
+    img = T.render(T.cornell_box_scene(device="cpu"),
+                   _moved(T).camera("cpu"),
                    T.RenderConfig(**FULL_FEATURED), n_batches=2)
     ref = jx.renderer.render(jx.pkg.cornell_box_scene(),
                              _moved(jx.pkg).camera(),
@@ -112,9 +114,9 @@ def test_render_progressive_reports_metrics(sphere):
     scene, cfg, accel = sphere
     seen = []
     img, n = T.render_progressive(
-        scene, T.OrbitCamera().camera(), cfg, accel=accel, n_batches=2,
+        scene, T.OrbitCamera().camera("cpu"), cfg, accel=accel, n_batches=2,
         on_batch=lambda b, im, m: seen.append((b, m)))
-    ref = T.render(scene, T.OrbitCamera().camera(), cfg, n_batches=2,
+    ref = T.render(scene, T.OrbitCamera().camera("cpu"), cfg, n_batches=2,
                    accel=accel)
     assert n == 2 and torch.equal(img, ref)
     assert [b for b, _ in seen] == [0, 1]
