@@ -2,7 +2,7 @@
 
     python chip_smoke.py
 
-Drives `dpt_tpu_torch` only (no JAX, no `dpt_tpu`), in eight phases, each
+Drives `dpt_tpu_torch` only (no JAX, no `dpt_tpu`), in eleven phases, each
 printing one line or more:
 
   1. device   — a CUDA card of compute capability 9.0; prints
@@ -15,8 +15,10 @@ printing one line or more:
                 packed 4-wide), on the 1024² primary stream and on 2**18
                 incoherent, coherence-sorted rays: hit / occluded / tri
                 exact and t equal.  Median ms over 5 calls with varied
-                inputs, CUDA events, after a warm-up; the bound from the
-                node visits and triangle tests these inputs need.
+                inputs, CUDA events, after a warm-up (the wrapper as the
+                render calls it), and the kernel's own device time from
+                torch.profiler; the bound from the node visits and
+                triangle tests these inputs need.
   4. K2       — csrc/wide_traverse.cu the same way, at the same tree packed
                 paired-children (`traversal="pallas"`).
   5. render   — the flagship forward render through the CLI (sylveon512 at
@@ -38,6 +40,26 @@ printing one line or more:
                 the CPU (plain walks), quad and pallas: loss at rtol 1e-5,
                 every gradient at rtol 1e-3 / atol 1e-4 x max|g| (the CPU
                 tests' tolerance).
+  9. K3       — csrc/intersect_nearest.cu against its plain PyTorch version
+                on the card: box512's 512² primary stream over the box (12
+                triangles) and 2**16 incoherent rays over the procedural
+                sphere of 3,720 triangles; hit, tri and t exact.  Median ms
+                over 5 calls with varied inputs, and the bound.
+ 10. box      — the box-scale path: `render_progressive` at box512 with
+                kernels="intersect" (512², 4 bounces, SSS, Russian roulette,
+                16 spp per batch), 4 batches through a camera source with a
+                checkpoint every 2 batches.  The image is finite, >= 0 and
+                not all zero; K3 is launched the integrator's count of
+                nearest queries (16 per sub-sample) per batch; a resume from
+                the batch-2 checkpoint and a camera change followed by 4
+                batches both give the image bit for bit; kernels="intersect"
+                against "none" on the card at rtol 1e-4 / atol 1e-5, and
+                the card against the CPU at 32² at rtol 1e-3 / atol 2e-3.
+ 11. cli      — `render --checkpoint` of the flagship for 2 batches, then
+                for 4 with the same file and `--compact-frac auto` (prints
+                "resuming from batch 2" and the derived fraction); a
+                scripted `interactive` session at box512 (orbit, render 2,
+                save, status, quit); `info`.
 
 Then one JSON line with the kernels, and as the last line
 `{"ok": true, "device": {...}}`.  Any failed phase raises, and the script
@@ -47,8 +69,11 @@ non-zero at phase 1.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -90,7 +115,15 @@ KERNELS = {
                       "dpt_tpu/kernels/pallas_quad.py:511", 4),
     "wide_traverse": ("dpt_tpu_torch/csrc/wide_traverse.cu",
                       "dpt_tpu/kernels/pallas_wide.py:209", 2),
+    "intersect_nearest": ("dpt_tpu_torch/csrc/intersect_nearest.cu",
+                          "dpt_tpu/kernels/pallas_intersect.py:42", 0),
 }
+# The K3 stream of real table size: the procedural sphere of 3,720
+# triangles (465 table rows).
+K3_TRIS_TARGET = 4000
+K3_TRIS = 3720
+K3_INCOHERENT_RAYS = 1 << 16
+BOX_BATCHES = 4
 GRAD_RTOL, GRAD_ATOL_REL = 1e-3, 1e-4
 
 
@@ -124,8 +157,8 @@ def phase_build():
     build.load_library()
     wall = time.perf_counter() - t0
     attrs = {(k, m): build.kernel_attributes(k, m == "occluded")
-             for k in build.KERNELS for m in ("nearest", "occluded")}
-    print(f"[2 build] {len(build.KERNELS)} kernels built in "
+             for k, modes in build.KERNEL_MODES.items() for m in modes}
+    print(f"[2 build] {len(build.KERNEL_MODES)} kernels built in "
           f"{build.build_seconds:.2f} s (load {wall:.2f} s); registers/local "
           "bytes per thread: "
           + ", ".join(f"{k}<{m}> {a['num_regs']}/{a['local_bytes']}"
@@ -185,6 +218,28 @@ def median_ms(fn, inputs):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_device_ms(fn, inputs, kernel):
+    """Mean device time of one launch of `kernel` (csrc/<kernel>.cu's
+    `<kernel>_kernel`) over one call of fn on each input, from
+    torch.profiler: the kernel alone, without its wrapper's host work.  The
+    profiler may miss a launch at the start of its window, so the mean is
+    over the launches it saw."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*inputs[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for args in inputs:
+            fn(*args)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and f"{kernel}_kernel" in e.key]
+    n = sum(e.count for e in evs)
+    require(0 < n <= len(inputs), f"profiler saw {n} launches of {kernel}")
+    return sum(e.self_device_time_total for e in evs) / n / 1e3
 
 
 def walk_module(kernel):
@@ -262,6 +317,7 @@ def compare_stream(kernel, name, inputs, accel, cfg, tag):
                         accel)
         out[mode] = {
             "ms": median_ms(run, inputs),
+            "kernel_ms": kernel_device_ms(run, inputs, kernel),
             "plain_ms": median_ms(run_ref, inputs),
             "max_abs_err": max_err if mode == "nearest" else 0.0,
             "bound_ms": bms,
@@ -271,10 +327,12 @@ def compare_stream(kernel, name, inputs, accel, cfg, tag):
     n, q = out["nearest"], out["occluded"]
     print(f"[{tag}] {name}: R={o.shape[0]} hit {hit_frac:.4f} occluded "
           f"{occ_frac:.4f}; exact on {len(inputs)} inputs; nearest "
-          f"{n['ms']:.3f} ms (plain {n['plain_ms']:.3f}, bound "
+          f"{n['ms']:.3f} ms (kernel {n['kernel_ms']:.3f}, plain "
+          f"{n['plain_ms']:.3f}, bound "
           f"{n['bound_ms']:.4f} by {n['bound_by']}; "
           f"{n['node_visits']} visits, {n['tri_tests']} tri tests), "
-          f"occluded {q['ms']:.3f} ms (plain {q['plain_ms']:.3f}, bound "
+          f"occluded {q['ms']:.3f} ms (kernel {q['kernel_ms']:.3f}, plain "
+          f"{q['plain_ms']:.3f}, bound "
           f"{q['bound_ms']:.4f} by {q['bound_by']}; {q['node_visits']} "
           f"visits, {q['tri_tests']} tri tests)", flush=True)
     return out
@@ -526,10 +584,277 @@ def phase_grads(device):
               "max|g|)", flush=True)
 
 
+def k3_bound(n_rays, n_rows):
+    """(bound_ms, bound_by) of one K3 call: rays in (24 B) and out (8 B)
+    and the table read once, over the HBM rate, against 8 slot tests per
+    table row for every ray (padded slots count: the kernel tests them) at
+    FLOPS_PER_TRI_TEST each, over the unfused float32 rate."""
+    nbytes = 32 * n_rays + 4 * 128 * n_rows
+    flops = n_rays * 8 * n_rows * FLOPS_PER_TRI_TEST
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_F32_UNFUSED_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare_k3(name, inputs, tris, eps, tag):
+    """K3 against its plain version on one stream: hit, tri and t exact on
+    every input; median ms of both and the bound."""
+    from dpt_tpu_torch.kernels import intersect as K
+
+    max_err = 0.0
+    hit_frac = None
+    for o, d in inputs:
+        kh, kt, ki = K.intersect_nearest(o, d, tris, eps)
+        ph, pt, pi = K.intersect_nearest_reference(o, d, tris, eps)
+        torch.cuda.synchronize()
+        require(torch.equal(kh, ph), f"K3 {name}: hit differs")
+        require(torch.equal(ki, pi), f"K3 {name}: tri differs")
+        require(torch.equal(kt, pt), f"K3 {name}: t differs")
+        max_err = max(max_err, float((kt - pt).abs().max()))
+        if hit_frac is None:
+            hit_frac = float(kh.float().mean())
+    require(0.0 < hit_frac, f"K3 {name}: no ray hit")
+    n_rays, n_rows = inputs[0][0].shape[0], tris.shape[0]
+    def run(o, d):
+        return K.intersect_nearest(o, d, tris, eps)
+
+    out = {
+        "ms": median_ms(run, inputs),
+        "kernel_ms": kernel_device_ms(run, inputs, "intersect_nearest"),
+        "plain_ms": median_ms(
+            lambda o, d: K.intersect_nearest_reference(o, d, tris, eps),
+            inputs),
+        "max_abs_err": max_err,
+    }
+    out["bound_ms"], out["bound_by"] = k3_bound(n_rays, n_rows)
+    print(f"[{tag}] {name}: R={n_rays}, {n_rows} table rows "
+          f"({8 * n_rows} slots), hit {hit_frac:.4f}; exact on "
+          f"{len(inputs)} inputs; {out['ms']:.4f} ms (kernel "
+          f"{out['kernel_ms']:.4f}, plain "
+          f"{out['plain_ms']:.3f}, bound {out['bound_ms']:.4f} by "
+          f"{out['bound_by']})", flush=True)
+    return out
+
+
+def phase_k3(device):
+    """K3 against its plain version on box512's primary stream over the box
+    and on incoherent rays over a table of real size."""
+    from dpt_tpu_torch.config import preset
+    from dpt_tpu_torch.kernels.intersect import pack_tris
+    from dpt_tpu_torch.scene.builder import cornell_box_scene, procedural_scene
+    from dpt_tpu_torch.scene.camera import OrbitCamera
+
+    tag = "9 K3"
+    cfg = preset("box512", kernels="intersect")
+    box = cornell_box_scene(device=device)
+    camera = OrbitCamera().camera(device)
+    prim = [primary_rays(camera, cfg, b, 300 + b, device)[:2]
+            for b in range(TIMED_CALLS)]
+    sphere = procedural_scene(K3_TRIS_TARGET, device=device)
+    require(sphere.n_triangles == K3_TRIS,
+            f"K3 sphere has {sphere.n_triangles} triangles")
+    inco = [incoherent_rays(sphere, K3_INCOHERENT_RAYS, 400 + k, device)[:2]
+            for k in range(TIMED_CALLS)]
+    return {
+        "primary": compare_k3("box512 primary 512^2, box (12 tris)", prim,
+                              pack_tris(*box.tri_vertices()), cfg.eps, tag),
+        "incoherent": compare_k3(
+            f"incoherent 2^16, sphere ({K3_TRIS} tris)", inco,
+            pack_tris(*sphere.tri_vertices()), cfg.eps, tag),
+    }
+
+
+def nearest_queries_per_sample(cfg):
+    """K3 calls of one sub-sample of trace_paths: the primary, one nearest
+    query per bounce after the first (bounce 0 reuses the primary) and one
+    per SSS step of every bounce.  The brute path is never
+    coherence-sorted, and every query after the primary runs on the
+    compacted live lanes, of which there is at least one."""
+    return (1 + (cfg.max_depth - 1)
+            + (cfg.max_depth * cfg.sss_bounces if cfg.enable_sss else 0))
+
+
+def image_ok(img, shape, what):
+    require(tuple(img.shape) == shape, f"{what}: shape {tuple(img.shape)}")
+    require(bool(torch.isfinite(img).all()), f"{what}: non-finite values")
+    require(bool((img >= 0).all()), f"{what}: negative values")
+    require(float(img.max()) > 0.0, f"{what}: all zero")
+
+
+def phase_box(device, tmp):
+    """The box-scale path: render_progressive at box512 with K3; returns
+    (K3 launch counts of the 4-batch run, its metrics rows)."""
+    from dpt_tpu_torch.config import preset
+    from dpt_tpu_torch.kernels import intersect as K
+    from dpt_tpu_torch.render.renderer import (
+        render_progressive,
+        render_sample,
+    )
+    from dpt_tpu_torch.scene.builder import cornell_box_scene
+    from dpt_tpu_torch.scene.camera import OrbitCamera
+    from dpt_tpu_torch.utils.checkpoint import Checkpointer
+
+    tag = "10 box"
+    cfg = preset("box512", kernels="intersect")
+    scene = cornell_box_scene(device=device)
+    home = OrbitCamera()
+    moved = home.view_update(40.0, -10.0)
+
+    def source_of(poses):
+        """A camera source giving poses[i] at its i-th call, then the last
+        one."""
+        calls = []
+
+        def source():
+            oc = poses[min(len(calls), len(poses) - 1)]
+            calls.append(oc)
+            return oc.state_tuple(), oc.camera(device)
+        return source
+
+    class KeepingCheckpointer(Checkpointer):
+        """Also keeps every save as <path>.<batch>.npz."""
+
+        def save(self, image, batch, extra=None, meta=None):
+            super().save(image, batch, extra=extra, meta=meta)
+            shutil.copyfile(self.path, f"{self.path}.{batch}.npz")
+
+    ck = KeepingCheckpointer(os.path.join(tmp, "box.npz"))
+    meta = {"camera_state": np.asarray(home.state_tuple(), np.float64),
+            "config_key": "box512"}
+    per_batch = cfg.spp * nearest_queries_per_sample(cfg)
+    rows = []
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    img, n = render_progressive(
+        scene, source_of([home]), cfg, n_batches=BOX_BATCHES,
+        on_batch=lambda b, im, m: rows.append(m), checkpointer=ck,
+        checkpoint_every=2, checkpoint_meta=meta)
+    torch.cuda.synchronize()
+    launches = dict(K.launch_counts)
+    require(n == BOX_BATCHES and len(rows) == BOX_BATCHES,
+            f"{n} batches, {len(rows)} metrics rows")
+    image_ok(img, (512, 512, 3), "box512 image")
+    require(launches == {"nearest": per_batch * BOX_BATCHES},
+            f"K3 launches {launches}, want {per_batch} per batch")
+    print(f"[{tag}] box512 {cfg.width}x{cfg.height} x{BOX_BATCHES} batches, "
+          f"{cfg.spp} spp, 12 tris, kernels=intersect: K3 launches "
+          f"{launches} ({per_batch} per batch = {cfg.spp} spp x "
+          f"{nearest_queries_per_sample(cfg)} nearest queries); batch_ms "
+          + ", ".join(f"{r['batch_ms']:.1f}" for r in rows)
+          + "; gross rays/s "
+          + ", ".join(f"{r['rays_per_s']:.4g}" for r in rows), flush=True)
+
+    saved, b2, aux = Checkpointer(f"{ck.path}.2.npz").load()
+    require(b2 == 2 and str(aux["meta"]["config_key"]) == "box512",
+            f"checkpoint at batch {b2}")
+    resumed, n = render_progressive(scene, home.camera(device), cfg,
+                                    n_batches=BOX_BATCHES, start_batch=b2,
+                                    start_image=saved)
+    require(n == BOX_BATCHES and torch.equal(resumed, img),
+            "resume from the batch-2 checkpoint differs")
+    seen = []
+    reset, n = render_progressive(
+        scene, source_of([moved, moved, home]), cfg, n_batches=BOX_BATCHES,
+        on_batch=lambda b, im, m: seen.append(b))
+    require(n == BOX_BATCHES and seen == [0, 1, 0, 1, 2, 3]
+            and torch.equal(reset, img),
+            f"camera change did not reset the accumulation ({seen})")
+    print(f"[{tag}] resume from the batch-2 checkpoint and a camera change "
+          "after 2 batches both give the 4-batch image bit for bit",
+          flush=True)
+
+    cam = home.camera(device)
+    a = render_sample(scene, cam, cfg, 0)
+    b = render_sample(scene, cam, cfg.replace(kernels="none"), 0)
+    bad = ~torch.isclose(a, b, rtol=1e-4, atol=1e-5)
+    print(f"[{tag}] kernels=intersect vs none, 512^2 16 spp on the card: "
+          f"max |diff| {float((a - b).abs().max()):.3g}, "
+          f"{int(bad.any(-1).sum())} pixels outside rtol 1e-4 / atol 1e-5",
+          flush=True)
+    require(not bool(bad.any()), "kernels=intersect and none differ")
+    small = cfg.replace(width=32, height=32)
+    c_gpu = render_sample(scene, cam, small, 0).cpu()
+    c_cpu = render_sample(cornell_box_scene(device="cpu"),
+                          home.camera("cpu"), small, 0)
+    bad = ~torch.isclose(c_gpu, c_cpu, rtol=1e-3, atol=2e-3)
+    print(f"[{tag}] 32^2 cuda vs cpu: max |diff| "
+          f"{float((c_gpu - c_cpu).abs().max()):.3g}, "
+          f"{int(bad.any(-1).sum())} of {32 * 32} pixels outside "
+          "rtol 1e-3 / atol 2e-3", flush=True)
+    require(not bool(bad.any()), "cuda and cpu box images differ")
+    return launches, rows
+
+
+def _run_cli(argv):
+    """cli.main(argv) with its standard error captured: (result, text)."""
+    from dpt_tpu_torch import cli
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        out = cli.main(argv)
+    return out, err.getvalue()
+
+
+def phase_cli(tmp):
+    """render --checkpoint with resume and --compact-frac auto, a scripted
+    interactive session, and info, on the card."""
+    from dpt_tpu_torch import cli
+    from dpt_tpu_torch.scene.camera import OrbitCamera
+
+    tag = "11 cli"
+    ck = os.path.join(tmp, "flagship_ck.npz")
+    base = ["render", *_flagship_args("quad"), "--checkpoint", ck,
+            "--metrics", os.path.join(tmp, "cli.jsonl")]
+    _, err = _run_cli([*base, "--batches", "2", "--out",
+                       os.path.join(tmp, "ck2.png")])
+    require("resuming" not in err, f"first run resumed: {err!r}")
+    img, err = _run_cli([*base, "--batches", "4", "--compact-frac", "auto",
+                         "--out", os.path.join(tmp, "ck4.png")])
+    require("resuming from batch 2" in err, f"no resume: {err!r}")
+    require("auto compact_frac = " in err, f"no auto fraction: {err!r}")
+    image_ok(img, (1024, 1024, 3), "resumed flagship image")
+    auto = [x for x in err.splitlines() if x.startswith("auto")][0]
+    print(f"[{tag}] render --checkpoint: 2 batches, then 4 with "
+          f"--compact-frac auto: 'resuming from batch 2', '{auto}'",
+          flush=True)
+
+    parser = cli._build_parser()
+    args = parser.parse_args(["interactive", "--preset", "box512",
+                              "--out-dir", tmp])
+    out = io.StringIO()
+    img = cli.cmd_interactive(
+        args, parser, stdout=out,
+        stdin=io.StringIO("orbit 30 -10\nrender 2\nsave x.npy\nstatus\n"
+                          "quit\n"))
+    oc = OrbitCamera().view_update(30.0, -10.0)
+    x = os.path.join(tmp, "x.npy")
+    want = ["rendered to batch 2", f"saved {x} (2 batches)",
+            f"batches=2 yaw={oc.yaw:.2f} pitch={oc.pitch:.2f} "
+            f"radius={oc.radius:.3f} fov={oc.fov_deg:.1f}"]
+    lines = out.getvalue().splitlines()
+    require(lines == want, f"interactive printed {lines}")
+    image_ok(torch.as_tensor(np.load(x)), (512, 512, 3), "interactive image")
+    require(np.array_equal(np.load(x), img.cpu().numpy()),
+            "saved image is not the session's")
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        info = cli.main(["info"])
+    require(json.loads(text.getvalue()) == info and info["cuda_available"]
+            and torch.cuda.get_device_name(0) in info["devices"],
+            f"info printed {info}")
+    print(f"[{tag}] interactive --preset box512 (512^2 kept): "
+          f"{' | '.join(lines)}; info: torch {info['torch_version']}, "
+          f"devices {info['devices']}", flush=True)
+
+
 def kernel_entries(kernel, stats, launches, **extra):
+    """The kernels-line entries of one kernel, one per mode of
+    stats[stream][mode] (streams "primary" and "incoherent")."""
     source, replaces, _ = KERNELS[kernel]
     out = []
-    for mode in ("nearest", "occluded"):
+    for mode in stats["primary"]:
         p, q = stats["primary"][mode], stats["incoherent"][mode]
         out.append({
             "name": f"{kernel}<{mode}>",
@@ -543,7 +868,9 @@ def kernel_entries(kernel, stats, launches, **extra):
             "bound_ms": p["bound_ms"],
             "bound_by": p["bound_by"],
             "library_ms": None,
+            "kernel_ms": p["kernel_ms"],
             "ms_incoherent": q["ms"],
+            "kernel_ms_incoherent": q["kernel_ms"],
             "plain_ms_incoherent": q["plain_ms"],
             "bound_ms_incoherent": q["bound_ms"],
             "bound_by_incoherent": q["bound_by"],
@@ -565,12 +892,19 @@ def main():
         quad_counts, _, _ = phase_optimize(tmp, "quad", "albedo,vertices")
         wide_counts, _, _ = phase_optimize(tmp, "pallas",
                                            "albedo,light_intensity")
-    phase_grads(device)
+        phase_grads(device)
+        k3 = phase_k3(device)
+        box_counts, _ = phase_box(device, tmp)
+        phase_cli(tmp)
 
-    # No PyTorch call computes a BVH walk, so library_ms is null.
+    # No PyTorch call computes a BVH walk or the brute-force nearest hit,
+    # so library_ms is null.
     kernels = (kernel_entries("quad_traverse", k1, render_counts,
                               launches_optimize=quad_counts)
-               + kernel_entries("wide_traverse", k2, wide_counts))
+               + kernel_entries("wide_traverse", k2, wide_counts)
+               + kernel_entries("intersect_nearest",
+                                {s: {"nearest": v} for s, v in k3.items()},
+                                box_counts))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

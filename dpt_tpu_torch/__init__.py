@@ -7,10 +7,14 @@ with DoF and AA, primary trace shared with the direct-view light pass,
 carry compaction, and bounces with NEE, SSS walk and a cosine bounce, with
 every query after the primary coherence-sorted.  It differentiates that
 render (diff/grads.py: tape, replay and plain backwards) and drives inverse
-rendering (diff/optimize.py, `cli optimize`).  The BVH walks run as
-hand-written CUDA kernels on the card (csrc/quad_traverse.cu,
-csrc/wide_traverse.cu) and as their plain PyTorch versions on the CPU.
-Entry points default to the card (`device="cuda"`).
+rendering (diff/optimize.py, `cli optimize`).  The box-scale path
+(`traversal="brute", kernels="intersect"`: the reference's box, progressive
+with checkpoints, `cli interactive`) runs the brute-force search.  The BVH
+walks and the brute-force search run as hand-written CUDA kernels on the
+card (csrc/quad_traverse.cu, csrc/wide_traverse.cu,
+csrc/intersect_nearest.cu) and as their plain PyTorch versions on the CPU.
+OBJ scenes load with `load_scene`.  Entry points default to the card
+(`device="cuda"`).
 
 It imports torch and numpy only, never jax or dpt_tpu.
 """
@@ -25,6 +29,7 @@ from dpt_tpu_torch.render.renderer import (
 from dpt_tpu_torch.scene.builder import (
     cornell_box_scene,
     knot_scene,
+    load_scene,
     procedural_scene,
 )
 from dpt_tpu_torch.scene.camera import Camera, OrbitCamera
@@ -52,6 +57,7 @@ __all__ = [
     "cornell_box_scene",
     "procedural_scene",
     "knot_scene",
+    "load_scene",
     "render",
     "render_sample",
     "render_progressive",

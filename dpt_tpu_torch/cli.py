@@ -1,11 +1,14 @@
-"""Command-line entry point: the `render` and `optimize` subcommands.
+"""Command-line entry point: `render`, `optimize`, `interactive` and `info`.
 
 Counterpart of those subcommands of `dpt_tpu/cli.py`:
-    python -m dpt_tpu_torch.cli render --preset sylveon512 --out out.png
+    python -m dpt_tpu_torch.cli render --preset box512 --out out.png
     python -m dpt_tpu_torch.cli render --device cpu --width 16 --height 16
+    python -m dpt_tpu_torch.cli render --scene path/to.obj --checkpoint c.npz
     python -m dpt_tpu_torch.cli render --width 64 --height 64 --out t.npy
     python -m dpt_tpu_torch.cli optimize --width 64 --height 64 \\
         --target t.npy --opt-params albedo --init-albedo 0.4 0.4 0.4
+    python -m dpt_tpu_torch.cli interactive --out-dir shots < commands.txt
+    python -m dpt_tpu_torch.cli info
 
 The default device is `cuda`, and a command fails when no card is present;
 the CPU runs only when asked for with `--device cpu`.  Options of the JAX
@@ -16,29 +19,30 @@ error naming their ROADMAP item.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
+import json
+import os
 import sys
 
 PRESET_NAMES = ["box256", "box512", "sylveon512", "sylveon1024",
                 "sylveon2048"]
+TRAVERSALS = ["brute", "quad", "pallas"]
 
-# option dest -> the ROADMAP item that ports it, per subcommand.
-_NOT_PORTED_COMMON = {
+# option dest -> the ROADMAP item that ports it (render and optimize).
+_NOT_PORTED = {
     "sharded": "--sharded (ROADMAP Queue 1 item 4)",
     "coordinator": "--coordinator (ROADMAP Queue 1 item 4)",
+    "num_processes": "--num-processes (ROADMAP Queue 1 item 4)",
+    "process_id": "--process-id (ROADMAP Queue 1 item 4)",
     "wavefront_sort": "--wavefront-sort (ROADMAP Queue 1 item 5)",
-    "scene": "--scene (ROADMAP Queue 1 item 7, the OBJ loader)",
-}
-_NOT_PORTED = {
-    "render": {"checkpoint": "render --checkpoint (ROADMAP Queue 1 item 3)",
-               **_NOT_PORTED_COMMON},
-    "optimize": _NOT_PORTED_COMMON,
 }
 
-# RenderConfig fields that change what is rendered.  The checkpoint's config
-# key hashes only these: the others (traversal, BVH build, packet_tile,
-# ray_sort, compact_frac, the remat flags, ...) change how fast the same
-# estimate is computed, and toggling one must not discard a valid resume.
+# RenderConfig fields that change what is rendered.  A checkpoint's config
+# key hashes only these and the scene choice: the others (traversal, BVH
+# build, packet_tile, ray_sort, compact_frac, the remat flags, ...) change
+# how fast the same estimate is computed, and toggling one must not discard
+# a valid resume.
 _FRAMING_FIELDS = (
     "width", "height", "max_depth", "spp", "direct_light_view", "enable_sss",
     "sss_bounces", "russian_roulette", "rr_start_depth", "enable_dof",
@@ -58,17 +62,27 @@ def _frac_or_auto(s):
     return "auto" if s == "auto" else float(s)
 
 
-def _add_cfg_args(r):
-    """Config, scene, camera and device arguments shared by both commands."""
+def _add_scene_args(r):
+    """Scene and device arguments of every rendering command."""
     r.add_argument("--preset", choices=PRESET_NAMES)
+    r.add_argument("--scene", help=".obj path (default: the box, or the "
+                                   "procedural sphere for sylveon presets)")
     r.add_argument("--procedural-tris", type=_positive_int,
                    help="use the procedural Sylveon-class sphere with ~N "
                         "triangles instead of a preset's default scene")
+    r.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain "
+                        "PyTorch versions of the kernels)")
+
+
+def _add_cfg_args(r):
+    """Config, scene, camera and device arguments of render and optimize."""
+    _add_scene_args(r)
     r.add_argument("--width", type=int)
     r.add_argument("--height", type=int)
     r.add_argument("--bounces", type=int)
     r.add_argument("--spp", type=int)
-    r.add_argument("--traversal", choices=["brute", "quad", "pallas"],
+    r.add_argument("--traversal", choices=TRAVERSALS,
                    help="nearest/any-hit backend (quad = 4-wide BVH walk, "
                         "pallas = paired-children BVH walk)")
     r.add_argument("--bvh-builder", choices=["median", "sah"])
@@ -79,20 +93,18 @@ def _add_cfg_args(r):
     r.add_argument("--no-sss", action="store_true")
     r.add_argument("--rr", action="store_true", help="Russian roulette")
     r.add_argument("--compact-frac", type=_frac_or_auto, default=None,
-                   help="carry compaction after the primary trace "
-                        "(> 0 on, 0 off; 'auto' is not ported yet)")
+                   help="carry compaction after the primary trace (> 0 on, "
+                        "0 off; 'auto' derives it from a primary-hit probe)")
     r.add_argument("--metrics", help="JSONL metrics file (default stdout)")
     r.add_argument("--yaw", type=float, default=0.0)
     r.add_argument("--pitch", type=float, default=0.0)
     r.add_argument("--radius", type=float, default=5.0)
-    r.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; cpu runs the plain "
-                        "PyTorch walks)")
     # Accepted for command-line parity; not ported yet.
     r.add_argument("--sharded", action="store_true")
     r.add_argument("--coordinator")
+    r.add_argument("--num-processes", type=_positive_int)
+    r.add_argument("--process-id", type=int)
     r.add_argument("--wavefront-sort", action="store_true")
-    r.add_argument("--scene")
 
 
 def _build_parser():
@@ -104,8 +116,11 @@ def _build_parser():
     r.add_argument("--batches", type=int, default=8)
     r.add_argument("--out", default="render.png",
                    help=".png (tonemapped) or .npy (raw radiance)")
+    r.add_argument("--checkpoint",
+                   help="npz accumulation checkpoint (resumed if it exists "
+                        "and its framing matches)")
+    r.add_argument("--checkpoint-every", type=int, default=0)
     r.add_argument("--exposure", type=float, default=1.0)
-    r.add_argument("--checkpoint")
 
     o = sub.add_parser("optimize",
                        help="inverse rendering: recover scene parameters "
@@ -138,6 +153,26 @@ def _build_parser():
     o.add_argument("--checkpoint-every", type=int, default=0)
     o.add_argument("--out", default="recovered.npz",
                    help="recovered parameters (npz)")
+
+    it = sub.add_parser(
+        "interactive",
+        help="headless interactive session: orbit / zoom / render commands "
+             "on stdin (the mainLoop + input-event analog, "
+             "VulkanRayTracer.cpp:717-860 + VulkanWindow.cpp:215-301)")
+    _add_scene_args(it)
+    it.add_argument("--width", type=int,
+                    help="default: the preset's, else 256")
+    it.add_argument("--height", type=int,
+                    help="default: the preset's, else 256")
+    it.add_argument("--bounces", type=int, default=2)
+    it.add_argument("--traversal", choices=TRAVERSALS, default=None,
+                    help="override the traversal (default: the preset's, "
+                         "or brute without a preset)")
+    it.add_argument("--no-sss", action="store_true")
+    it.add_argument("--out-dir", default=".")
+    it.add_argument("--exposure", type=float, default=1.0)
+
+    sub.add_parser("info", help="print torch and device information")
     return p
 
 
@@ -168,93 +203,139 @@ def _make_cfg(args):
         over["enable_sss"] = False
     if args.rr:
         over["russian_roulette"] = True
-    if args.compact_frac is not None:
+    if args.compact_frac is not None and args.compact_frac != "auto":
         over["compact_frac"] = args.compact_frac
     return cfg.replace(**over) if over else cfg
 
 
-def _pick_scene(args, device):
-    """Explicit procedural triangle count > preset default (sylveon presets
-    get the Sylveon-class procedural stand-in, everything else the box)."""
-    from dpt_tpu_torch.scene.builder import cornell_box_scene, procedural_scene
-
+def _scene_choice(args):
+    """The scene the arguments select: an .obj path > an explicit
+    procedural triangle count > the preset's default (sylveon presets get
+    the Sylveon-class procedural stand-in, everything else the box)."""
+    if args.scene:
+        return ("obj", args.scene)
     if args.procedural_tris:
-        return procedural_scene(n_tris_target=args.procedural_tris,
-                                device=device)
+        return ("procedural", args.procedural_tris)
     if args.preset and args.preset.startswith("sylveon"):
-        return procedural_scene(device=device)
+        return ("procedural", None)
+    return ("box",)
+
+
+def _pick_scene(args, device):
+    from dpt_tpu_torch.scene.builder import (
+        cornell_box_scene,
+        load_scene,
+        procedural_scene,
+    )
+
+    kind, *arg = _scene_choice(args)
+    if kind == "obj":
+        return load_scene(arg[0], device=device)
+    if kind == "procedural":
+        return (procedural_scene(n_tris_target=arg[0], device=device)
+                if arg[0] else procedural_scene(device=device))
     return cornell_box_scene(device=device)
+
+
+def _device(args, parser):
+    import torch
+
+    from dpt_tpu_torch.scene.scene import NO_CUDA
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        parser.error(NO_CUDA)
+    return device
 
 
 def _setup(args, parser):
     """Refuse what is not ported, then (device, cfg, scene, orbit, camera,
-    accel)."""
-    import torch
-
+    accel), with `--compact-frac auto` resolved by a probe render."""
     from dpt_tpu_torch.accel.bvh import build_accel
+    from dpt_tpu_torch.render.renderer import auto_compact_frac
     from dpt_tpu_torch.scene.camera import OrbitCamera
-    from dpt_tpu_torch.scene.scene import NO_CUDA
 
-    for dest, what in _NOT_PORTED[args.cmd].items():
-        if getattr(args, dest):
+    for dest, what in _NOT_PORTED.items():
+        given = getattr(args, dest)
+        if given is not None and given is not False:
             parser.error(f"{what} is not yet ported to dpt_tpu_torch")
-    if args.compact_frac == "auto":
-        parser.error("--compact-frac auto (ROADMAP Queue 1 item 3) is not "
-                     "yet ported to dpt_tpu_torch")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        parser.error(NO_CUDA)
+    device = _device(args, parser)
     cfg = _make_cfg(args)
     scene = _pick_scene(args, device)
     orbit = OrbitCamera(yaw=args.yaw, pitch=args.pitch, radius=args.radius)
-    return device, cfg, scene, orbit, orbit.camera(device), build_accel(
-        scene, cfg)
+    camera = orbit.camera(device)
+    accel = build_accel(scene, cfg)
+    if args.compact_frac == "auto":
+        frac = auto_compact_frac(scene, camera, cfg, accel)
+        print(f"auto compact_frac = {frac:.4f}", file=sys.stderr)
+        cfg = cfg.replace(compact_frac=frac)
+    return device, cfg, scene, orbit, camera, accel
+
+
+def _checkpoint_meta(args, orbit, cfg, setup=()):
+    """Integrity meta of a checkpoint: the camera state plus a hash of the
+    framing fields of cfg, the scene choice and `setup` (the optimisation
+    setup of an optimize run)."""
+    import numpy as np
+
+    framing = {f: getattr(cfg, f) for f in _FRAMING_FIELDS}
+    key = hashlib.sha1(repr((sorted(framing.items()), _scene_choice(args),
+                             setup)).encode())
+    return {"camera_state": np.asarray(orbit.state_tuple(), np.float64),
+            "config_key": key.hexdigest()}
 
 
 def cmd_render(args, parser):
-    """Render, write the image and one metrics line per batch; returns the
-    image [H, W, 3] on the render device."""
+    """Render, write the image and one metrics line per batch, resuming
+    from and writing `--checkpoint`; returns the image [H, W, 3] on the
+    render device."""
     from dpt_tpu_torch.render.renderer import render_progressive
+    from dpt_tpu_torch.utils.checkpoint import Checkpointer, meta_matches
     from dpt_tpu_torch.utils.io import save_image
     from dpt_tpu_torch.utils.metrics import JsonlLogger
 
-    device, cfg, scene, _, camera, accel = _setup(args, parser)
+    device, cfg, scene, orbit, camera, accel = _setup(args, parser)
+    # Resuming under another framing would blend two accumulations; a
+    # mismatch resets instead, as a camera change does
+    # (VulkanRayTracer.cpp:739-754).
+    meta = _checkpoint_meta(args, orbit, cfg)
+    ckpt = Checkpointer(args.checkpoint) if args.checkpoint else None
+    start_batch, start_image = 0, None
+    loaded = ckpt.load() if ckpt is not None else None
+    if loaded is not None:
+        image_l, batch_l, aux = loaded
+        if meta_matches(aux["meta"], meta["camera_state"],
+                        meta["config_key"]):
+            start_image, start_batch = image_l, batch_l
+            print(f"resuming from batch {start_batch}", file=sys.stderr)
+        else:
+            print("checkpoint framing mismatch (camera/config changed): "
+                  "resetting accumulation", file=sys.stderr)
+
     logger = JsonlLogger(args.metrics)
     try:
         def on_batch(b, img, metrics):
             logger.log(event="batch", batch=b, device=str(device), **metrics)
 
-        img, n_done = render_progressive(scene, camera, cfg, accel=accel,
-                                         n_batches=args.batches,
-                                         on_batch=on_batch)
+        img, n_done = render_progressive(
+            scene, camera, cfg, accel=accel, n_batches=args.batches,
+            on_batch=on_batch, checkpointer=ckpt,
+            checkpoint_every=args.checkpoint_every, checkpoint_meta=meta,
+            start_batch=start_batch, start_image=start_image)
     finally:
         logger.close()
-    save_image(args.out, img.cpu().numpy(), exposure=args.exposure)
+    full = img.cpu().numpy()
+    if ckpt is not None:
+        ckpt.save(full, n_done, meta=meta)
+    save_image(args.out, full, exposure=args.exposure)
     print(f"wrote {args.out} ({n_done} batches)", file=sys.stderr)
     return img
-
-
-def _checkpoint_meta(args, orbit, cfg, opt_keys):
-    """Integrity meta of an optimisation checkpoint: the camera state plus a
-    hash of the framing fields of cfg, the scene choice and the
-    optimisation setup."""
-    import numpy as np
-
-    framing = {f: getattr(cfg, f) for f in _FRAMING_FIELDS}
-    setup = (args.preset, args.procedural_tris, args.init_albedo,
-             args.target, args.lr, args.optimizer, opt_keys,
-             args.micro_steps, args.backward, args.fixed_seeds)
-    key = hashlib.sha1(repr((sorted(framing.items()), setup)).encode())
-    return {"camera_state": np.asarray(orbit.state_tuple(), np.float64),
-            "config_key": key.hexdigest()}
 
 
 def cmd_optimize(args, parser):
     """Inverse rendering: target image + starting scene -> optimisation
     steps with gradient accumulation, JSONL metrics and params + optimizer
     state checkpoint / resume.  Returns (params, losses)."""
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -281,23 +362,25 @@ def cmd_optimize(args, parser):
     target = torch.as_tensor(target, device=device)
     opt_keys = tuple(k.strip() for k in args.opt_params.split(",")
                      if k.strip())
-    meta = _checkpoint_meta(args, orbit, cfg, opt_keys)
+    # The optimisation setup is part of the key: resuming another run
+    # (other target, lr or parameters) must start fresh, not blend.
+    meta = _checkpoint_meta(args, orbit, cfg, (
+        args.init_albedo, args.target, args.lr, args.optimizer, opt_keys,
+        args.micro_steps, args.backward, args.fixed_seeds))
 
     ckpt = Checkpointer(args.checkpoint) if args.checkpoint else None
     start_step, init_params, init_opt = 0, None, None
-    if ckpt is not None and ckpt.exists():
-        loaded = ckpt.load()
-        if loaded is not None and meta_matches(
-                loaded[2]["meta"], meta["camera_state"], meta["config_key"]):
-            params_t = split_params(scene, camera)
-            restored = load_state(ckpt, params_t, initial_opt_state(
-                args.optimizer, params_t, opt_keys))
-            if restored is not None:
-                start_step, init_params, init_opt = restored
-                print(f"resuming from step {start_step}", file=sys.stderr)
-        elif loaded is not None:
-            print("checkpoint setup mismatch: starting fresh",
-                  file=sys.stderr)
+    loaded = ckpt.load() if ckpt is not None else None
+    if loaded is not None and meta_matches(
+            loaded[2]["meta"], meta["camera_state"], meta["config_key"]):
+        params_t = split_params(scene, camera)
+        restored = load_state(ckpt, params_t, initial_opt_state(
+            args.optimizer, params_t, opt_keys))
+        if restored is not None:
+            start_step, init_params, init_opt = restored
+            print(f"resuming from step {start_step}", file=sys.stderr)
+    elif loaded is not None:
+        print("checkpoint setup mismatch: starting fresh", file=sys.stderr)
 
     logger = JsonlLogger(args.metrics)
     try:
@@ -328,14 +411,138 @@ def cmd_optimize(args, parser):
     return params, losses
 
 
+def _interactive_cfg(args):
+    """A preset keeps its own resolution unless --width / --height are
+    given; without a preset the frame is 256² by default.  Batches are
+    1 spp, like the reference's dispatches (VulkanRayTracer.cpp:811)."""
+    from dpt_tpu_torch.config import RenderConfig, preset
+
+    size = {k: v for k, v in (("width", args.width),
+                              ("height", args.height)) if v is not None}
+    if args.preset:
+        cfg = preset(args.preset).replace(
+            max_depth=args.bounces, spp=1, enable_sss=not args.no_sss,
+            **size)
+        return cfg.replace(traversal=args.traversal) if args.traversal \
+            else cfg
+    trav = args.traversal or "brute"
+    bvh = trav in ("pallas", "quad")
+    return RenderConfig(
+        **{"width": 256, "height": 256, **size}, max_depth=args.bounces,
+        spp=1, traversal=trav, enable_sss=not args.no_sss,
+        bvh_builder="sah" if bvh else "median",
+        bvh_leaf_size=8 if bvh else 4, ray_sort=bvh,
+    )
+
+
+def cmd_interactive(args, parser, stdin=None, stdout=None):
+    """Headless interactive loop: the reference's progressive mainLoop with
+    camera-change reset (VulkanRayTracer.cpp:717-860), driven by text
+    commands instead of Qt mouse events (VulkanWindow.cpp:215-301).
+
+    Commands (one per line on stdin):
+        orbit DX DY     mouse-drag orbit by pixel deltas (Camera.cpp:37-64)
+        zoom FACTOR     wheel zoom (x0.9 / x1.1 in the reference)
+        fov DEGREES     set the field of view
+        render N        accumulate N more 1-spp batches
+        save NAME       write the current accumulation to out-dir/NAME
+        status          print the batches accumulated and the camera state
+        quit            exit
+
+    Every camera command resets the accumulation, like the reference's
+    camera-change detection (VulkanRayTracer.cpp:739-754).  Returns the
+    accumulated image [H, W, 3] on the render device."""
+    import torch
+
+    from dpt_tpu_torch.accel.bvh import build_accel
+    from dpt_tpu_torch.render.renderer import accumulate, render_sample
+    from dpt_tpu_torch.scene.camera import OrbitCamera
+    from dpt_tpu_torch.utils.io import save_image
+
+    stdin = stdin if stdin is not None else sys.stdin
+    stdout = stdout if stdout is not None else sys.stdout
+    device = _device(args, parser)
+    cfg = _interactive_cfg(args)
+    scene = _pick_scene(args, device)
+    accel = build_accel(scene, cfg)
+    orbit = OrbitCamera()
+    img = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
+                      device=device)
+    batch = 0
+
+    def reset():
+        nonlocal img, batch
+        img = torch.zeros_like(img)
+        batch = 0
+
+    for line in stdin:
+        parts = line.split()
+        if not parts:
+            continue
+        cmd, rest = parts[0], parts[1:]
+        if cmd == "orbit" and len(rest) == 2:
+            orbit = orbit.view_update(float(rest[0]), float(rest[1]))
+            reset()
+        elif cmd == "zoom" and len(rest) == 1:
+            orbit = orbit.zoom_update(float(rest[0]))
+            reset()
+        elif cmd == "fov" and len(rest) == 1:
+            orbit = dataclasses.replace(orbit, fov_deg=float(rest[0]))
+            reset()
+        elif cmd == "render" and len(rest) == 1:
+            camera = orbit.camera(device)
+            for _ in range(int(rest[0])):
+                sample = render_sample(scene, camera, cfg, batch, accel)
+                img = accumulate(img, sample, batch, cfg)
+                batch += 1
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            print(f"rendered to batch {batch}", file=stdout, flush=True)
+        elif cmd == "save" and len(rest) == 1:
+            path = os.path.join(args.out_dir, rest[0])
+            save_image(path, img.cpu().numpy(), exposure=args.exposure)
+            print(f"saved {path} ({batch} batches)", file=stdout, flush=True)
+        elif cmd == "status":
+            print(f"batches={batch} yaw={orbit.yaw:.2f} "
+                  f"pitch={orbit.pitch:.2f} radius={orbit.radius:.3f} "
+                  f"fov={orbit.fov_deg:.1f}", file=stdout, flush=True)
+        elif cmd == "quit":
+            break
+        else:
+            print(f"unknown command: {line.strip()!r}", file=stdout,
+                  flush=True)
+    return img
+
+
+def cmd_info():
+    """Print (and return) the torch version, whether CUDA is available and
+    the names of the CUDA devices, as JSON."""
+    import torch
+
+    info = {
+        "torch_version": torch.__version__,
+        "cuda_version": torch.version.cuda,
+        "cuda_available": torch.cuda.is_available(),
+        "devices": [torch.cuda.get_device_name(i)
+                    for i in range(torch.cuda.device_count())],
+    }
+    print(json.dumps(info, indent=2))
+    return info
+
+
 def main(argv=None):
     """Run one subcommand: `render` returns its image [H, W, 3], `optimize`
-    its (params, losses)."""
+    its (params, losses), `interactive` its last accumulation, `info` its
+    dict."""
     parser = _build_parser()
     args = parser.parse_args(argv)
     if args.cmd == "render":
         return cmd_render(args, parser)
-    return cmd_optimize(args, parser)
+    if args.cmd == "optimize":
+        return cmd_optimize(args, parser)
+    if args.cmd == "interactive":
+        return cmd_interactive(args, parser)
+    return cmd_info()
 
 
 def entry() -> int:

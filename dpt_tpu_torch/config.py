@@ -77,8 +77,10 @@ class RenderConfig:
     # TPU tiling knobs of the JAX package: accepted, no effect here.
     packet_tile: int = 256
     interleave: int = 8
-    # Kernel path for the brute-force intersect ('none' only; 'intersect'
-    # is ROADMAP Queue 2 K3).
+    # Nearest-hit search of the brute traversal: 'none' (the plain search,
+    # render/intersect.py) or 'intersect' (CUDA kernel K3,
+    # kernels/intersect.py).  Other traversals ignore it, as in the JAX
+    # package.
     kernels: str = "none"
     # Coherence-sort every traversal query stream after the primary by
     # (active, direction octant, origin Morton) (render/compaction.py).
@@ -109,11 +111,9 @@ class RenderConfig:
                 "wavefront_sort=True is not ported yet: ROADMAP Queue 1 "
                 "item 5 (carry-level wavefront sort)"
             )
-        if self.kernels != "none":
-            raise NotImplementedError(
-                f"kernels={self.kernels!r} is not ported yet: ROADMAP "
-                "Queue 2 K3 (pallas_intersect kernel, the next slice)"
-            )
+        if self.kernels not in ("none", "intersect"):
+            raise ValueError(
+                f"unknown kernels={self.kernels!r}: 'none' or 'intersect'")
 
     @property
     def n_pixels(self) -> int:

@@ -95,7 +95,7 @@ __global__ void __launch_bounds__(kBlock) quad_traverse_kernel(
       if (!(hit[s] && ptr[s] < 0.f)) continue;
       const int row = static_cast<int>(-ptr[s] - 1.0f);
       if (dpt::leaf_row<kOccluded>(tris + 32 * static_cast<size_t>(row), ray,
-                                   md, best_t, best_i)) {
+                                   md, dpt::kEps, best_t, best_i)) {
         out_tri[r] = 1;
         return;
       }

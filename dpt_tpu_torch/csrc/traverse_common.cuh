@@ -1,9 +1,10 @@
 // Device helpers shared by the BVH walks K1 (quad_traverse.cu) and K2
-// (wide_traverse.cu): the slab test and the Möller–Trumbore leaf-row test,
-// in the arithmetic order of the TPU kernels and of the plain PyTorch walks
-// (dpt_tpu_torch/kernels/quad.py `_slab`, `_leaf_tests`).  Both kernels are
+// (wide_traverse.cu) and the brute-force search K3 (intersect_nearest.cu):
+// the slab test and the Möller–Trumbore leaf-row test, in the arithmetic
+// order of the TPU kernels and of the plain PyTorch versions
+// (dpt_tpu_torch/kernels/quad.py `_slab`, `_leaf_tests`).  The kernels are
 // built with -fmad=false, so these are the same roundings as the plain
-// walks and the two agree exactly on the card.
+// versions and the two agree exactly on the card.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,8 +15,8 @@ constexpr int kStack = 64;
 constexpr int kBlock = 128;
 constexpr float kTMax = 1e30f;
 constexpr float kTiny = 1e-20f;
-// Möller–Trumbore epsilon hard-coded by both TPU kernels
-// (pallas_quad.py:610,627; pallas_wide.py:293,310).
+// Möller–Trumbore epsilon hard-coded by both TPU walks
+// (pallas_quad.py:610,627; pallas_wide.py:293,310); K3 takes its own.
 constexpr float kEps = 1e-6f;
 
 // NaN-propagating min / max (torch.minimum / jnp.minimum semantics): a
@@ -54,11 +55,12 @@ __device__ __forceinline__ void slab(const float* f, int b, const Ray& r,
 }
 
 // Tests the 8 slots of a leaf row (8 triangles x 16 floats: v0, e1, e2,
-// oid, valid) in slot order.  Nearest mode takes strictly smaller t into
-// (best_t, best_i); occluded mode returns true at the first hit t < md.
+// oid, valid) in slot order, with `eps` in both the parallel test and
+// t > eps.  Nearest mode takes strictly smaller t into (best_t, best_i);
+// occluded mode returns true at the first hit t < md.
 template <bool kOccluded>
 __device__ __forceinline__ bool leaf_row(const float4* __restrict__ tr,
-                                         const Ray& r, float md,
+                                         const Ray& r, float md, float eps,
                                          float& best_t, int& best_i) {
   for (int k = 0; k < 8; ++k) {
     const float4 a = __ldg(tr + 4 * k + 0);  // v0x v0y v0z e1x
@@ -73,7 +75,7 @@ __device__ __forceinline__ bool leaf_row(const float4* __restrict__ tr,
     const float py = r.dz * e2x - r.dx * e2z;
     const float pz = r.dx * e2y - r.dy * e2x;
     const float det = e1x * px + e1y * py + e1z * pz;
-    const bool parallel = fabsf(det) < kEps;
+    const bool parallel = fabsf(det) < eps;
     const float inv_det = 1.0f / (parallel ? 1.0f : det);
     const float tx = r.ox - v0x;
     const float ty = r.oy - v0y;
@@ -85,7 +87,7 @@ __device__ __forceinline__ bool leaf_row(const float4* __restrict__ tr,
     const float v = inv_det * (r.dx * qx + r.dy * qy + r.dz * qz);
     const float t = inv_det * (e2x * qx + e2y * qy + e2z * qz);
     const bool tri_hit = !parallel && u >= 0.f && u <= 1.f && v >= 0.f &&
-                         u + v <= 1.f && t > kEps && valid;
+                         u + v <= 1.f && t > eps && valid;
     if (kOccluded) {
       if (tri_hit && t < md) return true;
     } else if (tri_hit && t < best_t) {

@@ -95,7 +95,7 @@ __global__ void __launch_bounds__(kBlock) wide_traverse_kernel(
       if (!(hit[c] && ptr < 0.f)) continue;
       const int row = static_cast<int>(-ptr - 1.0f);
       if (dpt::leaf_row<kOccluded>(tris + 32 * static_cast<size_t>(row), ray,
-                                   md, best_t, best_i)) {
+                                   md, dpt::kEps, best_t, best_i)) {
         out_tri[r] = 1;
         return;
       }

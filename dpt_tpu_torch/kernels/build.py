@@ -7,7 +7,8 @@ library goes to `dpt_tpu_torch/_build/` under a name keyed by a hash of the
 sources and flags, so an edited source is never served a stale build.
 Nothing here runs at import: the package is also imported where there is
 no `nvcc`, and a build happens only when a CUDA tensor reaches a kernel
-wrapper.  `launch_walk` calls a walk kernel through its C interface.
+wrapper.  `launch_walk` calls a BVH walk kernel (K1, K2) through its C
+interface, `launch_intersect` the brute-force search (K3).
 
 `-fmad=false` keeps every multiply and add separately rounded, so a kernel
 and its plain PyTorch version (separate elementwise ops) agree exactly on
@@ -36,9 +37,16 @@ NVCC_FLAGS = (
 )
 
 # The BVH walks, each exported by csrc/<name>.cu as `dpt_<name>` (the launch,
-# same signature for both) and `dpt_<name>_attrs`:
+# same signature for both, `launch_walk`) and `dpt_<name>_attrs`:
 # K1 (pallas_quad) and K2 (pallas_wide).
-KERNELS = ("quad_traverse", "wide_traverse")
+WALKS = ("quad_traverse", "wide_traverse")
+# The brute-force search K3 (pallas_intersect), exported by
+# csrc/intersect_nearest.cu as `dpt_intersect_nearest` (rays, table, R,
+# n_rows, eps: `launch_intersect`) and `dpt_intersect_nearest_attrs`.
+INTERSECT = "intersect_nearest"
+# Every kernel of the library -> its modes.
+KERNEL_MODES = {**{k: ("nearest", "occluded") for k in WALKS},
+                INTERSECT: ("nearest",)}
 
 _lib = None
 # Wall seconds the last call to `load_library` spent compiling (0.0 when the
@@ -125,10 +133,14 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name in KERNELS:
+    for name in WALKS:
         launch = getattr(lib, f"dpt_{name}")
         launch.argtypes = [p, p, p, p, p, i, i, p, p, p]
         launch.restype = i
+    launch = getattr(lib, f"dpt_{INTERSECT}")
+    launch.argtypes = [p, p, p, i, i, ctypes.c_float, p, p, p]
+    launch.restype = i
+    for name in KERNEL_MODES:
         attrs = getattr(lib, f"dpt_{name}_attrs")
         attrs.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
         attrs.restype = i
@@ -139,10 +151,14 @@ def load_library() -> ctypes.CDLL:
 
 
 def kernel_attributes(kernel: str, occluded: bool) -> dict:
-    """Registers and local bytes per thread of one kernel of KERNELS in one
-    mode."""
-    if kernel not in KERNELS:
-        raise ValueError(f"unknown kernel {kernel!r}; known: {KERNELS}")
+    """Registers and local bytes per thread of one kernel of KERNEL_MODES
+    in one mode."""
+    modes = KERNEL_MODES.get(kernel)
+    if modes is None:
+        raise ValueError(f"unknown kernel {kernel!r}; known: "
+                         f"{tuple(KERNEL_MODES)}")
+    if ("occluded" if occluded else "nearest") not in modes:
+        raise ValueError(f"{kernel} has only the modes {modes}")
     lib = load_library()
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
     err = getattr(lib, f"dpt_{kernel}_attrs")(
@@ -152,14 +168,15 @@ def kernel_attributes(kernel: str, occluded: bool) -> dict:
     return {"num_regs": regs.value, "local_bytes": local.value}
 
 
-def check_rays(origin, direction, max_dist):
-    """Raise unless the rays are float32 [R, 3], [R, 3], [R] on one
-    device."""
+def check_rays(origin, direction, max_dist=None):
+    """Raise unless the rays are float32 [R, 3], [R, 3] and (when given)
+    [R] on one device."""
     dev = origin.device
     R = origin.shape[0]
-    for name, x, shape in (("origin", origin, (R, 3)),
-                           ("direction", direction, (R, 3)),
-                           ("max_dist", max_dist, (R,))):
+    checks = [("origin", origin, (R, 3)), ("direction", direction, (R, 3))]
+    if max_dist is not None:
+        checks.append(("max_dist", max_dist, (R,)))
+    for name, x, shape in checks:
         if x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {x.dtype}")
         if tuple(x.shape) != shape:
@@ -171,7 +188,7 @@ def check_rays(origin, direction, max_dist):
 
 def launch_walk(kernel, origin, direction, max_dist, nodes, tris,
                 occluded: bool):
-    """Launch one walk kernel of KERNELS on the current stream: (t [R] f32,
+    """Launch one walk kernel of WALKS on the current stream: (t [R] f32,
     tri or occluded [R] int32).  The caller has checked the rays and the
     tables; this checks the tables' alignment and the launch's error."""
     R = origin.shape[0]
@@ -192,8 +209,36 @@ def launch_walk(kernel, origin, direction, max_dist, nodes, tris,
         ctypes.c_void_p(out_t.data_ptr()), ctypes.c_void_p(out_i.data_ptr()),
         ctypes.c_void_p(stream),
     )
+    _check_launch(lib, kernel, err)
+    return out_t, out_i
+
+
+def launch_intersect(origin, direction, tris, eps: float):
+    """Launch K3 on the current stream: (t [R] f32, tri [R] int32), t 1e30
+    and tri 0 on a miss.  The caller has checked the rays and the table;
+    this checks the table's alignment and the launch's error."""
+    R = origin.shape[0]
+    out_t = torch.empty((R,), dtype=torch.float32, device=origin.device)
+    out_i = torch.empty((R,), dtype=torch.int32, device=origin.device)
+    if R == 0:
+        return out_t, out_i
+    tensors = [x.contiguous() for x in (origin, direction, tris)]
+    if tensors[2].data_ptr() % 16:
+        raise ValueError("the triangle table must be 16-byte aligned")
+    lib = load_library()
+    stream = torch.cuda.current_stream(origin.device).cuda_stream
+    err = getattr(lib, f"dpt_{INTERSECT}")(
+        *(ctypes.c_void_p(x.data_ptr()) for x in tensors),
+        ctypes.c_int(R), ctypes.c_int(tris.shape[0]), ctypes.c_float(eps),
+        ctypes.c_void_p(out_t.data_ptr()), ctypes.c_void_p(out_i.data_ptr()),
+        ctypes.c_void_p(stream),
+    )
+    _check_launch(lib, INTERSECT, err)
+    return out_t, out_i
+
+
+def _check_launch(lib, kernel, err):
     if err != 0:
         raise RuntimeError(
             f"{kernel} launch failed: cudaError {err} "
             f"({lib.dpt_cuda_error_string(err).decode()})")
-    return out_t, out_i

@@ -324,10 +324,11 @@ def _slab(rec, b, ray):
     return tn, tf
 
 
-def _leaf_tests(o, d, trow):
-    """Möller–Trumbore of rays o, d ([k, 3]) against the 8 slots of their
-    leaf rows trow [k, 8, 16], in the order of pallas_quad.py:606-629.
-    Returns (hit [k, 8], t [k, 8], oid [k, 8] int32)."""
+def _leaf_tests(o, d, trow, eps=_EPS):
+    """Möller–Trumbore of rays o, d ([k, 3]) against the slots of their
+    leaf rows trow [k, 8, 16] (or one table [1, S, 16] for every ray), in
+    the order of pallas_quad.py:606-629, with `eps` in the parallel test
+    and in t > eps.  Returns (hit, t, oid int32), each [k, 8] (or [k, S])."""
     ox, oy, oz = (o[:, i:i + 1] for i in range(3))
     dx, dy, dz = (d[:, i:i + 1] for i in range(3))
     v0x, v0y, v0z = trow[..., 0], trow[..., 1], trow[..., 2]
@@ -340,7 +341,7 @@ def _leaf_tests(o, d, trow):
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x
     det = e1x * px + e1y * py + e1z * pz
-    parallel = det.abs() < _EPS
+    parallel = det.abs() < eps
     inv_det = torch.reciprocal(torch.where(parallel, torch.ones_like(det), det))
     tx = ox - v0x
     ty = oy - v0y
@@ -357,7 +358,7 @@ def _leaf_tests(o, d, trow):
         & (u <= 1.0)
         & (v >= 0.0)
         & (u + v <= 1.0)
-        & (t > _EPS)
+        & (t > eps)
         & valid
     )
     return hit, t, oid

@@ -2,14 +2,14 @@
 
 Counterpart of `dpt_tpu/render/renderer.py` (`render_sample`, the tape's
 `render_sample_taped` / `render_sample_playback`, `accumulate`, `render`,
-and a serial `render_progressive`).  The reference dispatches one 1-spp
-kernel per iteration and keeps a running average (VulkanRayTracer.cpp:
-717-860, raytrace_comp.comp:467-469).  Everything runs on the device of the
-scene; the accel must live there too.
+the pipelined `render_progressive` with camera-source reset and
+checkpoints, and the `live_fraction_by_depth` / `auto_compact_frac`
+diagnostics).  The reference dispatches one 1-spp kernel per iteration and
+keeps a running average, resetting it when the camera moves
+(VulkanRayTracer.cpp:717-860, raytrace_comp.comp:467-469).  Everything runs
+on the device of the scene; the accel must live there too.
 
-Not ported yet: the live fraction diagnostics, checkpointing, pipelined
-dispatch, `render_fn` and camera-source reset of the progressive loop
-(ROADMAP Queue 1 item 3), and sharding (item 4).
+Not ported yet: sharding (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -138,41 +138,175 @@ def render(scene, camera, cfg: RenderConfig, n_batches: Optional[int] = None,
     return img
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _mark(device):
+    """The point where the work queued so far completes: a timing CUDA
+    event recorded on the current stream, or on the CPU (where that work is
+    already done) the host clock."""
+    if device.type != "cuda":
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
 
 
-def render_progressive(scene, camera, cfg: RenderConfig, accel=None,
-                       n_batches: Optional[int] = None,
-                       on_batch: Optional[Callable] = None):
-    """Serial progressive accumulation of `n_batches` batches.
+def _wait_ms(start, end) -> float:
+    """Wait until `end` has completed; the ms from `start` to `end`."""
+    if isinstance(end, float):
+        return (end - start) * 1e3
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def render_progressive(
+    scene,
+    camera_source,
+    cfg: RenderConfig,
+    accel=None,
+    n_batches: Optional[int] = None,
+    on_batch: Optional[Callable] = None,
+    checkpointer=None,
+    checkpoint_every: int = 0,
+    checkpoint_meta: Optional[dict] = None,
+    start_batch: int = 0,
+    start_image=None,
+    render_fn: Optional[Callable] = None,
+):
+    """Progressive accumulation loop with camera-change reset.
+
+    camera_source: a Camera, or a zero-argument callable returning the
+    current (OrbitCamera state_tuple, Camera); when the state changes the
+    accumulation restarts at batch 0 (VulkanRayTracer.cpp:739-754).
 
     on_batch(batch_idx, image, metrics) is called after each batch, with
-    metrics `batch_ms` (host clock around the batch, ending in a device
-    synchronise), gross `rays_per_s` (every lane charged for every
-    traversal, utils/metrics.traversals_per_sample) and `batches_done`.
-    Returns (image, batches_accumulated).
+    `batch_ms`, gross `rays_per_s` (every lane charged for every traversal,
+    utils/metrics.traversals_per_sample) and `batches_done`; with a
+    `checkpointer` and `checkpoint_every` > 0 the accumulation is saved
+    after every checkpoint_every-th batch, with `checkpoint_meta`.
+    render_fn(scene, camera, cfg, batch, accel) -> image replaces
+    `render_sample`.  A resume passes `start_batch` and `start_image` (an
+    array or tensor).  Returns (image, batches_accumulated).
+
+    Dispatch is pipelined as in the JAX package: batch b+1 is queued
+    before the host waits on batch b's CUDA event and publishes b
+    (on_batch, then the checkpoint), so that host work overlaps device
+    work.  The image is the serial loop's bit for bit (the accumulation is
+    ordered on the stream).  batch_ms is completion to completion on the
+    device clock: from the event after the previous batch (the first
+    batch: an event recorded before its dispatch) to the event after this
+    one, so a run's batch_ms sum to its span on the card.  (The JAX loop
+    times a batch from its own dispatch, which with one batch in flight
+    spans two batches.)  The integrator takes the live-lane count on the
+    host inside each batch (compaction), which bounds the overlap.
     """
     from dpt_tpu_torch.utils.metrics import traversals_per_sample
 
+    if render_fn is None:
+        render_fn = render_sample
     n = cfg.sample_batches if n_batches is None else n_batches
     dev = scene.device
-    img = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
-                      device=dev)
+    if start_image is not None:
+        img = torch.as_tensor(start_image, dtype=torch.float32, device=dev)
+    else:
+        img = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
+                          device=dev)
     rays = cfg.n_pixels * cfg.spp * traversals_per_sample(
         cfg, scene.lights.count)
-    for b in range(n):
-        _sync(dev)
-        t0 = time.perf_counter()
-        sample = render_sample(scene, camera, cfg, b, accel)
-        img = accumulate(img, sample, b, cfg)
-        _sync(dev)
-        dt = time.perf_counter() - t0
+    batch = start_batch
+    prev_cam_state = None
+    pending = None  # (batch index, image after it, start mark, end mark)
+    last_mark = None  # the end mark of the batch dispatched last
+
+    def publish(entry):
+        """Wait for a finished batch and run its host-side effects."""
+        b, pimg, start, end = entry
+        dt = _wait_ms(start, end) / 1e3
         if on_batch is not None:
-            on_batch(b, img, {
+            on_batch(b, pimg, {
                 "batch_ms": dt * 1e3,
                 "rays_per_s": rays / dt,
                 "batches_done": b + 1,
             })
-    return img, n
+        if checkpointer is not None and checkpoint_every and (
+                (b + 1) % checkpoint_every == 0):
+            checkpointer.save(pimg.cpu().numpy(), b + 1,
+                              meta=checkpoint_meta)
+
+    while batch < n:
+        if callable(camera_source):
+            cam_state, camera = camera_source()
+            if prev_cam_state is not None and cam_state != prev_cam_state:
+                # Camera moved: reset the accumulation.  The batch in
+                # flight finished under the old framing; publish it first.
+                if pending is not None:
+                    publish(pending)
+                    pending = None
+                img = torch.zeros_like(img)
+                batch = 0
+            prev_cam_state = cam_state
+        else:
+            camera = camera_source
+
+        start = _mark(dev) if last_mark is None else last_mark
+        with torch.profiler.record_function("render_batch"):
+            sample = render_fn(scene, camera, cfg, batch, accel)
+            img = accumulate(img, sample, batch, cfg)
+        last_mark = _mark(dev)
+        if pending is not None:
+            publish(pending)
+        pending = (batch, img, start, last_mark)
+        batch += 1
+    if pending is not None:
+        publish(pending)
+    return img, batch
+
+
+@torch.no_grad()
+def live_fraction_by_depth(scene, camera, cfg: RenderConfig, accel=None,
+                           sample_batch=0):
+    """Fraction of lanes alive entering each bounce (live_in[0] == 1.0):
+    the bounce chain on every lane of one sub-sample, without compaction,
+    for utils/metrics.effective_traversals_per_sample."""
+    from dpt_tpu_torch.render.integrator import make_bounce_body
+
+    if cfg.max_depth <= 1:
+        return [1.0]
+    nearest = make_nearest(scene, cfg, accel)
+    occluded = make_occluded(scene, cfg, accel)
+    o, d, st = generate_rays(camera, cfg, sample_batch)
+    R = o.shape[0]
+    body = make_bounce_body(scene, nearest, occluded, cfg)
+    carry = (o, d, torch.ones((R, 3), dtype=torch.float32, device=o.device),
+             torch.zeros((R, 3), dtype=torch.float32, device=o.device),
+             torch.ones((R,), dtype=torch.bool, device=o.device), st)
+    fractions = [1.0]
+    for depth in range(cfg.max_depth - 1):
+        carry = body(carry, depth)
+        fractions.append(float(carry[4].float().mean()))
+    return fractions
+
+
+@torch.no_grad()
+def auto_compact_frac(scene, camera, cfg: RenderConfig, accel=None,
+                      margin: float = 1.05, probe_side: int = 256) -> float:
+    """The carry-compaction fraction the JAX package derives from the
+    primary-hit fraction of a probe render (`--compact-frac auto`).
+
+    The probe keeps cfg's aspect ratio at most `probe_side` pixels on its
+    long side (a square probe of a non-square frame would see another field
+    of view); the capacity covers the hit lanes with `margin` headroom,
+    rounded up to 128 lanes at the real size.  Returns 0.0 (compaction
+    off) when that capacity is not smaller than the frame.  The port
+    compacts to exactly the live lanes for any value > 0, so the value
+    only turns compaction on or off here."""
+    f = min(probe_side / max(cfg.width, cfg.height), 1.0)
+    probe = cfg.replace(width=max(1, round(cfg.width * f)),
+                        height=max(1, round(cfg.height * f)))
+    nearest = make_nearest(scene, probe, accel)
+    o, d, _ = generate_rays(camera, probe, 0)
+    h = float(getattr(nearest, "unsorted", nearest)(o, d)["hit"].float()
+              .mean())
+    R = cfg.n_pixels
+    C = max(128, int(-(-(h * margin * R) // 128) * 128))
+    if C >= R:
+        return 0.0
+    return C / R

@@ -1,7 +1,8 @@
 """Nearest-hit and any-hit search dispatch: brute force or a BVH walk.
 
-Counterpart of `dpt_tpu/render/trace.py` for the `brute`, `quad` (K1) and
-`pallas` (K2) traversals.  `make_nearest(scene, cfg, accel)` returns
+Counterpart of `dpt_tpu/render/trace.py` for the `brute` (plain, or K3
+with `kernels="intersect"`), `quad` (K1) and `pallas` (K2) traversals.
+`make_nearest(scene, cfg, accel)` returns
 ``nearest(origin, direction) -> {"hit", "t", "tri"}``; `make_occluded`
 returns ``occluded(origin, direction, max_dist) -> [R] bool``.  The search
 only decides which triangle, so every output is detached; continuous
@@ -46,8 +47,22 @@ def _detached_corners(scene):
 
 
 def make_nearest(scene, cfg: RenderConfig, accel=None):
+    """With `traversal="brute", kernels="intersect"` every nearest query is
+    one K3 call (kernels/intersect.py) on a table packed here, once, from
+    the scene's current (detached) vertices."""
     if cfg.traversal == "brute":
         v0, v1, v2 = _detached_corners(scene)
+        if cfg.kernels == "intersect":
+            from dpt_tpu_torch.kernels import intersect
+
+            tris = intersect.pack_tris(v0, v1, v2)
+
+            def nearest(o, d):
+                hit, t, tri = intersect.intersect_nearest(
+                    o.detach(), d.detach(), tris, cfg.eps)
+                return {"hit": hit, "t": t, "tri": tri}
+
+            return nearest
 
         def nearest(o, d):
             hit, t, tri, _, _ = brute_force_nearest(o.detach(), d.detach(),
@@ -71,7 +86,9 @@ def make_nearest(scene, cfg: RenderConfig, accel=None):
 
 def make_occluded(scene, cfg: RenderConfig, accel=None):
     """Any-hit shadow query: same predicate as nearest + `t < max_dist`
-    (raytrace_comp.comp:359), terminating at the first hit."""
+    (raytrace_comp.comp:359), terminating at the first hit.  The brute
+    traversal always takes the plain `brute_force_occluded`, with or
+    without `kernels="intersect"`: the JAX package has no any-hit K3."""
     if cfg.traversal == "brute":
         v0, v1, v2 = _detached_corners(scene)
 

@@ -1,23 +1,26 @@
-"""Scene assembly: procedural geometry + lights + materials → Scene.
+"""Scene assembly: OBJ / procedural geometry + lights + materials → Scene.
 
-Counterpart of `dpt_tpu/scene/builder.py` for the procedural scenes
-(`cornell_box_scene`, `procedural_scene`, `knot_scene`).  OBJ loading
-(`load_scene`, `scene/obj.py`) is not ported yet (ROADMAP Queue 1 item 7).
-Every builder defaults to the card (`device="cuda"`) and raises when there
-is none; pass `device="cpu"` for the CPU.
+Counterpart of `dpt_tpu/scene/builder.py` (`load_scene`,
+`cornell_box_scene`, `procedural_scene`, `knot_scene`).  Every builder
+defaults to the card (`device="cuda"`) and raises when there is none; pass
+`device="cpu"` for the CPU.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from dpt_tpu_torch.scene import procedural
+from dpt_tpu_torch.scene.obj import load_obj
 from dpt_tpu_torch.scene.scene import (
     Lights,
     Materials,
     Scene,
     default_lights,
+    f32,
     resolve_device,
 )
 
@@ -44,6 +47,21 @@ def _scene_from_arrays(vertices, indices, uvs=None, mat_idx=None,
         materials=materials.to(device),
         lights=lights.to(device),
     )
+
+
+def load_scene(path: str, lights: Lights | None = None,
+               materials: Materials | None = None, device="cuda") -> Scene:
+    """Load any .obj into a Scene (replaces the hard-coded path at
+    VulkanRayTracer.cpp:66); without `materials`, the defaults with each
+    material's Kd as its albedo."""
+    device = resolve_device(device)
+    mesh = load_obj(path)
+    if materials is None:
+        materials = dataclasses.replace(
+            Materials.default(mesh.material_albedo.shape[0], device=device),
+            albedo=f32(mesh.material_albedo, device))
+    return _scene_from_arrays(mesh.vertices, mesh.indices, mesh.uvs,
+                              mesh.mat_idx, materials, lights, device=device)
 
 
 def cornell_box_scene(lights: Lights | None = None, device="cuda") -> Scene:

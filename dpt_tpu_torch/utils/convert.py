@@ -1,8 +1,9 @@
 """Carry state across from the JAX package, given as numpy arrays.
 
 No JAX counterpart: this is how a scene, camera, packed BVH (quad or
-paired-children) or parameter dict built by `dpt_tpu` becomes the port's,
-so both packages render and differentiate the same thing.  The
+paired-children), brute-force triangle table (K3) or parameter dict built
+by `dpt_tpu` becomes the port's, so both packages render and differentiate
+the same thing.  The
 caller converts JAX arrays with `np.asarray`; nothing here imports JAX.
 Arrays are copied as they are (float32 / int32), with no renormalisation.
 """
@@ -102,6 +103,15 @@ def wide_accel_from_arrays(nodes, tris, n_internal: int, max_depth: int,
         n_internal=int(n_internal),
         max_depth=int(max_depth),
     )
+
+
+def intersect_table_from_arrays(tris, device="cuda") -> torch.Tensor:
+    """The K3 triangle table (kernels/intersect.pack_tris) from a `dpt_tpu`
+    `pallas_intersect.pack_tris` table [ceil(T/8), 128]."""
+    tris = np.asarray(tris, np.float32)
+    if tris.ndim != 2 or tris.shape[1] != 128:
+        raise ValueError("tris must be [ceil(T/8), 128]")
+    return f32(tris, resolve_device(device))
 
 
 def params_from_arrays(params: dict, device="cuda") -> dict:

@@ -33,6 +33,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 # Kernel families, matched in order against a lower-cased kernel name.
 FAMILIES = (
     ("walk", ("quad_traverse", "wide_traverse")),
+    ("brute-force search", ("intersect_nearest",)),
     ("sort", ("sort",)),
     ("index / gather / scatter", ("index", "gather", "scatter")),
     ("reduce", ("reduce",)),

@@ -5,13 +5,15 @@ across as numpy arrays with utils/convert.py, and the target image is made
 with numpy from a seed, so both packages differentiate the same function.
 
   - For the brute, quad (K1) and paired-children (K2, `pallas`) traversals,
-    the port's tape, replay and plain gradients are allclose to JAX
-    `tape_loss_and_grads` with the same traversal: loss at rtol 1e-5, each
-    gradient at rtol 1e-3 with atol 1e-4 x max|g| of its key (float32
-    renders summed over pixels in another order; the detached hit choices
-    are the same).  The brute case is the full-featured one (SSS, Russian
-    roulette, 2 spp, compaction, remat); the BVH cases run the coherence
-    sort.
+    the port's tape, replay and plain gradients are allclose to one JAX
+    `tape_loss_and_grads` reference of the same full-featured framing (SSS,
+    Russian roulette, 2 spp) with the brute traversal, the JAX package's
+    plain search, which its own tests hold its BVH walks to: loss at rtol
+    1e-5, each gradient at rtol 1e-3 with atol 1e-4 x max|g| of its key
+    (float32 renders summed over pixels in another order; the detached hit
+    choices are the same).  The cases differ in what does not change the
+    estimate: the brute case compacts and rematerialises, the BVH cases run
+    the coherence sort, pallas with compaction.
   - The taped forward is the plain render bit for bit, the playback equals
     it, and the playback calls no traversal and no coherence sort.
   - Finite differences confirm an albedo and a vertex gradient.
@@ -37,10 +39,11 @@ GRAD_RTOL, GRAD_ATOL_REL = 1e-3, 1e-4
 
 BASE = dict(width=8, height=8, max_depth=2, spp=1, enable_sss=False,
             bvh_builder="median", bvh_leaf_size=4, remat_bounces=False)
+# The framing every traversal case renders, and the JAX reference's config.
+FULL = dict(BASE, enable_sss=True, russian_roulette=True, rr_start_depth=1,
+            spp=2, traversal="brute")
 CASES = {
-    "brute": dict(traversal="brute", enable_sss=True, russian_roulette=True,
-                  rr_start_depth=1, spp=2, compact_frac=0.25,
-                  remat_bounces=True),
+    "brute": dict(compact_frac=0.25, remat_bounces=True),
     "quad": dict(traversal="quad", ray_sort=True, compact_frac=0.0),
     "pallas": dict(traversal="pallas", ray_sort=True, compact_frac=0.25),
 }
@@ -117,16 +120,24 @@ def _assert_grads_close(got, ref, what):
                                    err_msg=f"{what}:{k}")
 
 
+@pytest.fixture(scope="module")
+def jax_tape_ref(jx, box):
+    """(loss, grads) of JAX `tape_loss_and_grads` at FULL, computed once."""
+    return jx.grads.tape_loss_and_grads(
+        box.js, box.jc, jx.pkg.RenderConfig(**FULL),
+        jx.jnp.asarray(box.target), sample_batch=3)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_grads_match_jax_tape(jx, box, case):
-    over = {**BASE, **CASES[case]}
-    jcfg = jx.pkg.RenderConfig(**over, packet_tile=128, interleave=1)
+def test_grads_match_jax_tape(jx, box, jax_tape_ref, case):
+    over = {**FULL, **CASES[case]}
     cfg = T.RenderConfig(**over)
-    jacc = jx.build_accel(box.js, jcfg)
+    # The BVH comes from the JAX package's builder and packer, carried
+    # across as arrays.
+    jacc = jx.build_accel(box.js, jx.pkg.RenderConfig(
+        **over, packet_tile=128, interleave=1))
     acc = _accel_to_port(jacc)
-    jl, jg = jx.grads.tape_loss_and_grads(
-        box.js, box.jc, jcfg, jx.jnp.asarray(box.target), sample_batch=3,
-        accel=jacc)
+    jl, jg = jax_tape_ref
     target = torch.as_tensor(box.target)
     got = {}
     for name, fn in (("tape", G.tape_loss_and_grads),

@@ -258,7 +258,7 @@ def test_cli_optimize_cpu_end_to_end(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--sharded"], ["--coordinator", "h:1"], ["--compact-frac", "auto"],
+    ["--sharded"], ["--coordinator", "h:1"], ["--num-processes", "2"],
 ])
 def test_cli_optimize_unported_options_exit(tmp_path, flag, capsys):
     tgt = tmp_path / "t.npy"

@@ -66,13 +66,19 @@ def test_presets_equal(jx, name):
 
 
 @pytest.mark.parametrize("over", [
-    {"traversal": "bvh"}, {"traversal": "packet"},
-    {"traversal": "threaded"}, {"wavefront_sort": True},
-    {"kernels": "intersect"},
+    ({"traversal": "bvh"}, NotImplementedError, "ROADMAP"),
+    ({"traversal": "packet"}, NotImplementedError, "ROADMAP"),
+    ({"traversal": "threaded"}, NotImplementedError, "ROADMAP"),
+    ({"wavefront_sort": True}, NotImplementedError, "ROADMAP"),
+    ({"kernels": "pallas"}, ValueError, "'none' or 'intersect'"),
 ])
 def test_unported_options_raise(over):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.RenderConfig(**over)
+    """Options not ported yet name their ROADMAP item; a kernels value that
+    is no kernel path is refused (kernels="intersect" is ported)."""
+    fields, exc, match = over
+    with pytest.raises(exc, match=match):
+        T.RenderConfig(**fields)
+    assert T.RenderConfig(kernels="intersect").kernels == "intersect"
 
 
 @pytest.mark.parametrize("which", ["box", "sphere", "knot"])
@@ -154,6 +160,7 @@ def test_import_leaves_jax_out():
         "import dpt_tpu_torch.kernels.build, dpt_tpu_torch.render.integrator\n"
         "import dpt_tpu_torch.kernels.wide, dpt_tpu_torch.diff.grads\n"
         "import dpt_tpu_torch.diff.optimize, dpt_tpu_torch.utils.checkpoint\n"
+        "import dpt_tpu_torch.kernels.intersect, dpt_tpu_torch.scene.obj\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'dpt_tpu'))\n"

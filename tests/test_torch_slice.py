@@ -141,8 +141,8 @@ def test_cli_render_cpu_writes_png(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--checkpoint", "c.npz"], ["--sharded"], ["--coordinator", "h:1"],
-    ["--wavefront-sort"], ["--scene", "box.obj"],
+    ["--num-processes", "2"], ["--sharded"], ["--coordinator", "h:1"],
+    ["--wavefront-sort"], ["--process-id", "0"],
 ])
 def test_cli_unported_options_exit(tmp_path, flag, capsys):
     with pytest.raises(SystemExit) as e:
