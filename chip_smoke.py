@@ -9,18 +9,24 @@ printing one line or more:
                 `nvidia-smi --query-gpu=name,power.limit`.
   2. build    — compiles the kernels from csrc/ (one nvcc per source, all
                 at once) and prints the build time and each kernel's
-                registers and local bytes per thread.
+                registers, local bytes per thread and resident blocks per
+                SM.
   3. K1       — csrc/quad_traverse.cu against its plain PyTorch walk on the
                 card, at the flagship tables (65,024 triangles, SAH leaf 8,
-                packed 4-wide), on the 1024² primary stream and on 2**18
-                incoherent, coherence-sorted rays: hit / occluded / tri
-                exact and t equal.  Median ms over 5 calls with varied
-                inputs, CUDA events, after a warm-up (the wrapper as the
-                render calls it), and the kernel's own device time from
-                torch.profiler; the bound from the node visits and
-                triangle tests these inputs need.
-  4. K2       — csrc/wide_traverse.cu the same way, at the same tree packed
-                paired-children (`traversal="pallas"`).
+                packed 4-wide), on the 1024² primary stream, on 2**18
+                incoherent, coherence-sorted rays and on 126,621 of them
+                (the size of the render's later queries), in both designs
+                (one ray per lane, one per group of four lanes): hit /
+                occluded / tri exact and t equal.  Median ms over 5 calls
+                with varied inputs, CUDA events, after a warm-up (the
+                wrapper as the render calls it, in the design it picks),
+                and the kernel's own device time from torch.profiler in
+                that design and in each; the bound from the node visits and
+                triangle tests these inputs need; the lane utilisation of a
+                one-ray-per-lane warp from the plain walk's per-ray visits.
+  4. K2       — csrc/wide_traverse.cu the same way (one design, one ray per
+                lane), at the same tree packed paired-children
+                (`traversal="pallas"`).
   5. render   — the flagship forward render through the CLI (sylveon512 at
                 1024², 4 batches); the image must be finite, >= 0 and not
                 all zero, the PNG valid, and K1 launched 16 nearest + 16
@@ -61,7 +67,9 @@ printing one line or more:
                 scripted `interactive` session at box512 (orbit, render 2,
                 save, status, quit); `info`.
 
-Then one JSON line with the kernels, and as the last line
+Then one JSON line with the kernels (each with its design; for K1 and K2
+the primary stream's numbers, the other streams' under "_incoherent" and
+"_bounce"), and as the last line
 `{"ok": true, "device": {...}}`.  Any failed phase raises, and the script
 exits non-zero without that last line.  Without a CUDA card it exits
 non-zero at phase 1.
@@ -92,6 +100,9 @@ torch.backends.cudnn.allow_tf32 = False
 FLAGSHIP_TRIS_TARGET = 66_000
 FLAGSHIP_TRIS = 65_024
 INCOHERENT_RAYS = 1 << 18
+# The rays of each flagship query after the primary: the primary hits of a
+# 1024² batch (12.08% of the pixels) that compaction keeps.
+BOUNCE_RAYS = 126_621
 TIMED_CALLS = 5
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 # bytes/s and non-tensor-core float32 FLOP/s.  The float32 peak counts an
@@ -117,6 +128,20 @@ KERNELS = {
                       "dpt_tpu/kernels/pallas_wide.py:209", 2),
     "intersect_nearest": ("dpt_tpu_torch/csrc/intersect_nearest.cu",
                           "dpt_tpu/kernels/pallas_intersect.py:42", 0),
+}
+# kernel -> its design on the card, for the kernels line.
+DESIGNS = {
+    "quad_traverse": (
+        "one ray per lane above one wave of resident lanes, one ray per "
+        "group of 4 lanes (a child's slab and 2 leaf slots each) at or "
+        "below it; one-instruction NaN min/max, leaf loads a slot ahead, "
+        "near child taken without a push; per-lane stack in local memory"),
+    "wide_traverse": (
+        "one ray per lane; one-instruction NaN min/max, leaf loads a slot "
+        "ahead, near child taken without a push; per-lane stack in local "
+        "memory"),
+    "intersect_nearest": (
+        "one thread per ray over every table row, broadcast loads"),
 }
 # The K3 stream of real table size: the procedural sphere of 3,720
 # triangles (465 table rows).
@@ -160,8 +185,9 @@ def phase_build():
              for k, modes in build.KERNEL_MODES.items() for m in modes}
     print(f"[2 build] {len(build.KERNEL_MODES)} kernels built in "
           f"{build.build_seconds:.2f} s (load {wall:.2f} s); registers/local "
-          "bytes per thread: "
-          + ", ".join(f"{k}<{m}> {a['num_regs']}/{a['local_bytes']}"
+          "bytes per thread/resident blocks per SM: "
+          + ", ".join(f"{k}<{m}> {a['num_regs']}/{a['local_bytes']}/"
+                      f"{a['blocks_per_sm']}"
                       for (k, m), a in attrs.items()), flush=True)
     return attrs
 
@@ -220,26 +246,45 @@ def median_ms(fn, inputs):
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, inputs, kernel):
+def design_of(name):
+    """The design of a profiled walk kernel launch, from its template
+    arguments: K1's group kernels are `quad_traverse_kernel<mode, 4>`."""
+    return "group" if ", 4>" in name else "lane"
+
+
+def kernel_device_ms(fns, inputs, kernel, windows=3):
     """Mean device time of one launch of `kernel` (csrc/<kernel>.cu's
-    `<kernel>_kernel`) over one call of fn on each input, from
-    torch.profiler: the kernel alone, without its wrapper's host work.  The
-    profiler may miss a launch at the start of its window, so the mean is
-    over the launches it saw."""
+    `<kernel>_kernel`) per design, from torch.profiler: `fns` maps each
+    design to a call, and every call runs once on each input in one
+    profiler window; the launches are told apart by design_of.  The kernel
+    alone, without its wrapper's host work.  The profiler may miss
+    launches at the start of its window: a first kernel opens it, the mean
+    is over the launches it saw, and a window that saw none of a design's
+    is taken again, up to `windows` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn(*inputs[0])
+    for fn in fns.values():
+        fn(*inputs[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for args in inputs:
-            fn(*args)
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and f"{kernel}_kernel" in e.key]
-    n = sum(e.count for e in evs)
-    require(0 < n <= len(inputs), f"profiler saw {n} launches of {kernel}")
-    return sum(e.self_device_time_total for e in evs) / n / 1e3
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            for args in inputs:
+                for fn in fns.values():
+                    fn(*args)
+            torch.cuda.synchronize()
+        times = {d: [] for d in fns}
+        for e in prof.events():
+            if (e.device_type == DeviceType.CUDA
+                    and f"{kernel}_kernel" in e.name):
+                times.setdefault(design_of(e.name), []).append(
+                    e.time_range.elapsed_us() / 1e3)
+        seen = {d: len(ts) for d, ts in times.items()}
+        if all(0 < n <= len(inputs) for n in seen.values()):
+            return {d: statistics.fmean(ts) for d, ts in times.items()}
+    raise SmokeFailure(f"profiler saw {seen} launches of {kernel} in "
+                       f"{windows} windows of {len(inputs)} calls")
 
 
 def walk_module(kernel):
@@ -284,57 +329,90 @@ def bound(kernel, occluded, n_rays, stats, accel):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def lane_utilisation(ray_visits, warp=32):
+    """Share of lanes a one-thread-per-ray warp keeps busy on a stream: the
+    mean records visited per ray over the mean, across each `warp`
+    consecutive rays, of their largest count (a warp walks until its
+    longest walk ends; lanes past the last ray count as idle).  From the
+    plain walk's per-ray counts."""
+    v = ray_visits.double()
+    groups = torch.cat([v, v.new_zeros((-v.numel()) % warp)]).view(-1, warp)
+    return float(v.sum() / (warp * groups.max(dim=1).values.sum()))
+
+
 def compare_stream(kernel, name, inputs, accel, cfg, tag):
-    """Kernel vs plain walk on one stream; returns per-mode stats."""
+    """Every design of a walk kernel against its plain walk on one stream,
+    exactly; returns per-mode stats: the wrapper's ms and the kernel's in
+    the design the wrapper picks for this stream (what the render runs),
+    and the kernel ms of each design."""
+    from dpt_tpu_torch.kernels.build import WALK_VARIANTS, walk_variant
+
     nearest, occluded, nearest_ref, occluded_ref = walk_functions(kernel)
     out = {}
     max_err = 0.0
     stats = {"nearest": {}, "occluded": {}}
     for i, (o, d, md) in enumerate(inputs):
-        kh, kt, ki = nearest(o, d, accel, cfg)
         ph, pt, pi = nearest_ref(o, d, accel, cfg,
                                  stats=stats["nearest"] if i == 0 else None)
-        torch.cuda.synchronize()
-        require(torch.equal(kh, ph), f"{kernel} {name}: nearest hit differs")
-        require(torch.equal(ki, pi), f"{kernel} {name}: nearest tri differs")
-        require(torch.equal(kt, pt), f"{kernel} {name}: nearest t differs")
-        max_err = max(max_err, float((kt - pt).abs().max()))
-        ko = occluded(o, d, md, accel, cfg)
         po = occluded_ref(o, d, md, accel, cfg,
                           stats=stats["occluded"] if i == 0 else None)
-        require(torch.equal(ko, po), f"{kernel} {name}: occluded differs")
+        for v in WALK_VARIANTS[kernel]:
+            kh, kt, ki = nearest(o, d, accel, cfg, variant=v)
+            ko = occluded(o, d, md, accel, cfg, variant=v)
+            torch.cuda.synchronize()
+            what = f"{kernel} ({v}) {name}"
+            require(torch.equal(kh, ph), f"{what}: nearest hit differs")
+            require(torch.equal(ki, pi), f"{what}: nearest tri differs")
+            require(torch.equal(kt, pt), f"{what}: nearest t differs")
+            require(torch.equal(ko, po), f"{what}: occluded differs")
+            max_err = max(max_err, float((kt - pt).abs().max()))
     o, d, md = inputs[0]
     hit_frac = float(nearest(o, d, accel, cfg)[0].float().mean())
     occ_frac = float(occluded(o, d, md, accel, cfg).float().mean())
-    calls = {
-        "nearest": [lambda o, d, md, f=f: f(o, d, accel, cfg)
-                    for f in (nearest, nearest_ref)],
-        "occluded": [lambda o, d, md, f=f: f(o, d, md, accel, cfg)
-                     for f in (occluded, occluded_ref)],
-    }
-    for mode, (run, run_ref) in calls.items():
+
+    def calls(mode, v=None):
+        f, f_ref = ((nearest, nearest_ref) if mode == "nearest"
+                    else (occluded, occluded_ref))
+        if mode == "nearest":
+            return (lambda o, d, md: f(o, d, accel, cfg, variant=v),
+                    lambda o, d, md: f_ref(o, d, accel, cfg))
+        return (lambda o, d, md: f(o, d, md, accel, cfg, variant=v),
+                lambda o, d, md: f_ref(o, d, md, accel, cfg))
+
+    for mode in ("nearest", "occluded"):
+        run, run_ref = calls(mode)
         bms, by = bound(kernel, mode == "occluded", o.shape[0], stats[mode],
                         accel)
+        stats[mode]["lane_utilisation"] = lane_utilisation(
+            stats[mode].pop("ray_visits"))
         out[mode] = {
+            "variant": walk_variant(kernel, o.shape[0], mode == "occluded",
+                                    o.device),
             "ms": median_ms(run, inputs),
-            "kernel_ms": kernel_device_ms(run, inputs, kernel),
+            **{f"kernel_ms_{v}": ms for v, ms in kernel_device_ms(
+                {v: calls(mode, v)[0] for v in WALK_VARIANTS[kernel]},
+                inputs, kernel).items()},
             "plain_ms": median_ms(run_ref, inputs),
             "max_abs_err": max_err if mode == "nearest" else 0.0,
             "bound_ms": bms,
             "bound_by": by,
             **stats[mode],
         }
-    n, q = out["nearest"], out["occluded"]
-    print(f"[{tag}] {name}: R={o.shape[0]} hit {hit_frac:.4f} occluded "
-          f"{occ_frac:.4f}; exact on {len(inputs)} inputs; nearest "
-          f"{n['ms']:.3f} ms (kernel {n['kernel_ms']:.3f}, plain "
-          f"{n['plain_ms']:.3f}, bound "
-          f"{n['bound_ms']:.4f} by {n['bound_by']}; "
-          f"{n['node_visits']} visits, {n['tri_tests']} tri tests), "
-          f"occluded {q['ms']:.3f} ms (kernel {q['kernel_ms']:.3f}, plain "
-          f"{q['plain_ms']:.3f}, bound "
-          f"{q['bound_ms']:.4f} by {q['bound_by']}; {q['node_visits']} "
-          f"visits, {q['tri_tests']} tri tests)", flush=True)
+        m = out[mode]
+        m["kernel_ms"] = m["kernel_ms_" + m["variant"]]
+    designs = WALK_VARIANTS[kernel]
+    line = [f"[{tag}] {name}: R={o.shape[0]} hit {hit_frac:.4f} occluded "
+            f"{occ_frac:.4f}; {'/'.join(designs)} exact on {len(inputs)} "
+            "inputs"]
+    for mode, m in out.items():
+        line.append(
+            f"{mode} {m['ms']:.3f} ms ({m['variant']}; kernel "
+            f"{m['kernel_ms']:.4f}, "
+            + ", ".join(f"{v} {m['kernel_ms_' + v]:.4f}" for v in designs)
+            + f", plain {m['plain_ms']:.3f}, bound {m['bound_ms']:.4f} by "
+            f"{m['bound_by']}; {m['node_visits']} visits, {m['tri_tests']} "
+            f"tri tests; lane utilisation {m['lane_utilisation']:.4f})")
+    print("; ".join(line), flush=True)
     return out
 
 
@@ -363,10 +441,14 @@ def phase_kernel(device, traversal, kernel, tag):
             for k in range(TIMED_CALLS)]
     counts = walk_module(kernel).launch_counts
     before = dict(counts)
+    bounce = [incoherent_rays(scene, BOUNCE_RAYS, 500 + k, device)
+              for k in range(TIMED_CALLS)]
     stats = {"primary": compare_stream(kernel, "primary 1024^2", prim, accel,
                                        cfg, tag),
              "incoherent": compare_stream(kernel, "incoherent 2^18", inco,
-                                          accel, cfg, tag)}
+                                          accel, cfg, tag),
+             "bounce": compare_stream(kernel, f"incoherent {BOUNCE_RAYS}",
+                                      bounce, accel, cfg, tag)}
     require(counts != before, f"phase {tag} never launched {kernel}")
     return stats
 
@@ -621,7 +703,8 @@ def compare_k3(name, inputs, tris, eps, tag):
 
     out = {
         "ms": median_ms(run, inputs),
-        "kernel_ms": kernel_device_ms(run, inputs, "intersect_nearest"),
+        "kernel_ms": kernel_device_ms({"lane": run}, inputs,
+                                      "intersect_nearest")["lane"],
         "plain_ms": median_ms(
             lambda o, d: K.intersect_nearest_reference(o, d, tris, eps),
             inputs),
@@ -849,33 +932,36 @@ def phase_cli(tmp):
           f"devices {info['devices']}", flush=True)
 
 
+# Per-stream numbers each kernels-line entry carries: the primary stream's
+# under these names, every other stream's with "_<stream>" appended.
+ENTRY_KEYS = ("ms", "kernel_ms", "kernel_ms_lane", "kernel_ms_group",
+              "variant", "plain_ms", "bound_ms", "bound_by",
+              "lane_utilisation")
+
+
 def kernel_entries(kernel, stats, launches, **extra):
     """The kernels-line entries of one kernel, one per mode of
-    stats[stream][mode] (streams "primary" and "incoherent")."""
+    stats[stream][mode] (streams "primary" and others)."""
     source, replaces, _ = KERNELS[kernel]
     out = []
     for mode in stats["primary"]:
-        p, q = stats["primary"][mode], stats["incoherent"][mode]
-        out.append({
+        entry = {
             "name": f"{kernel}<{mode}>",
             "route": "cuda",
             "source": source,
             "replaces": replaces,
+            "design": DESIGNS[kernel],
             "launches": launches[mode],
-            "max_abs_err": max(p["max_abs_err"], q["max_abs_err"]),
-            "ms": p["ms"],
-            "plain_ms": p["plain_ms"],
-            "bound_ms": p["bound_ms"],
-            "bound_by": p["bound_by"],
+            "max_abs_err": max(st[mode]["max_abs_err"]
+                               for st in stats.values()),
             "library_ms": None,
-            "kernel_ms": p["kernel_ms"],
-            "ms_incoherent": q["ms"],
-            "kernel_ms_incoherent": q["kernel_ms"],
-            "plain_ms_incoherent": q["plain_ms"],
-            "bound_ms_incoherent": q["bound_ms"],
-            "bound_by_incoherent": q["bound_by"],
-            **{k: v[mode] for k, v in extra.items()},
-        })
+        }
+        for sname, st in stats.items():
+            suffix = "" if sname == "primary" else f"_{sname}"
+            entry.update({k + suffix: st[mode][k] for k in ENTRY_KEYS
+                          if k in st[mode]})
+        entry.update({k: v[mode] for k, v in extra.items()})
+        out.append(entry)
     return out
 
 

@@ -11,24 +11,25 @@
 //   tris:  L leaf rows of 128 floats — 8 triangles x 16 lanes
 //          (v0, e1, e2, oid, valid).
 //
-// Design: one thread per ray, with a per-thread stack of dpt::kStack
-// internal record ids in local memory (the wrapper checks
-// max_depth + 2 <= kStack).  Each iteration pops one record (one 64-byte
-// fetch) and tests both children's slabs; a leaf child is intersected at
-// once (left before right, slots 0..7, strict t < best_t), and internal
-// children are pushed far first so the near one pops first.  The ray's own
-// octant picks the near bit of lane 14; the TPU kernel instead votes one
-// octant per tile, and interleaves P packet walks with an SMEM stack to
-// hide Mosaic's load latency, which a warp scheduler does by itself here.
-// Nearest culls a child with tn <= best_t; occluded culls with tn < max_dist
-// and returns at the first hit, and at once for max_dist <= 0.
+// What each ray computes is the plain walk's, exactly: each visit pops one
+// record (one 64-byte fetch) and tests both children's slabs; a leaf child
+// is intersected at once (left before right, slots 0..7, strict
+// t < best_t), and internal children are pushed far first so the near one
+// pops first.  The ray's own octant picks the near bit of lane 14; the TPU
+// kernel instead votes one octant per tile, and interleaves P packet walks
+// with an SMEM stack to hide Mosaic's load latency.  Nearest culls a child
+// with tn <= best_t; occluded culls with tn < max_dist and returns at the
+// first hit, and at once for max_dist <= 0.  It is built with -fmad=false,
+// so its arithmetic is the plain walk's sequence of roundings.
 //
-// What bounds it on this card: as K1, a chain of dependent global loads
-// per iteration (pop -> 64-byte record -> 512-byte leaf row) through the
-// read-only cache, and divergent walks within a warp.  This first version
-// does nothing about either.  It is built with -fmad=false, so its
-// arithmetic is the plain PyTorch walk's sequence of roundings and the two
-// agree exactly on the card.
+// What bounds it on this card: as K1 (quad_traverse.cu), issued
+// instructions and the latency of each visit's dependent loads, not bytes.
+// It shares K1's cheaper visit: one-instruction NaN min/max, the leaf rows'
+// loads issued a slot ahead, and the near child taken at once instead of
+// pushed and popped.  One thread walks one ray, with a per-thread stack of
+// dpt::kStack internal record ids (the wrapper checks
+// max_depth + 2 <= kStack).  K1's groups of lanes, here two per ray, lost
+// to one ray per lane on every stream measured (PERF.md, PR 4).
 
 #include "traverse_common.cuh"
 
@@ -37,6 +38,61 @@ namespace {
 using dpt::kBlock;
 using dpt::kStack;
 using dpt::kTMax;
+
+// One visit of record `node`: tests both children's slabs, intersects the
+// leaf children at once, left before right, and sets `node` to the nearer
+// hit internal child, pushing the farther, or to the popped top of the
+// stack, or to -1 when the walk is over — the order of pushing far then
+// near and popping one.  Returns true at an occluded mode's first hit.
+template <bool kOccluded>
+__device__ __forceinline__ bool wide_visit(const float4* __restrict__ nodes,
+                                           const float4* __restrict__ tris,
+                                           const dpt::Ray& ray, int octant,
+                                           float md, int& node, int* stack,
+                                           int& sp, float& best_t,
+                                           int& best_i) {
+  float f[16];
+  const float4* rec = nodes + 4 * static_cast<size_t>(node);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 v = __ldg(rec + q);
+    f[4 * q + 0] = v.x;
+    f[4 * q + 1] = v.y;
+    f[4 * q + 2] = v.z;
+    f[4 * q + 3] = v.w;
+  }
+
+  bool inner[2];
+  int ids[2];
+  unsigned leaves = 0;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    float tn, tf;
+    dpt::slab(f, 6 * c, ray, tn, tf);
+    const bool hit = kOccluded ? (tn <= tf && tf >= 0.f && tn < md)
+                               : (tn <= tf && tf >= 0.f && tn <= best_t);
+    const float ptr = f[12 + c];
+    inner[c] = hit && ptr >= 0.f;
+    ids[c] = inner[c] ? static_cast<int>(ptr) : static_cast<int>(-ptr - 1.0f);
+    if (hit && ptr < 0.f) leaves |= 1u << c;
+  }
+
+  // Leaf children at once, left before right.
+  if (dpt::leaf_children<kOccluded>(leaves, ids, tris, ray, md, best_t,
+                                    best_i, dpt::Group<1>{})) {
+    return true;
+  }
+  if (inner[0] && inner[1]) {
+    const bool left_near = (static_cast<int>(f[14]) >> octant) & 1;
+    stack[sp++] = left_near ? ids[1] : ids[0];
+    node = left_near ? ids[0] : ids[1];
+  } else if (inner[0] || inner[1]) {
+    node = inner[0] ? ids[0] : ids[1];
+  } else {
+    node = sp > 0 ? stack[--sp] : -1;
+  }
+  return false;
+}
 
 template <bool kOccluded>
 __global__ void __launch_bounds__(kBlock) wide_traverse_kernel(
@@ -59,64 +115,17 @@ __global__ void __launch_bounds__(kBlock) wide_traverse_kernel(
   const int octant = dpt::octant_of(ray);
 
   int stack[kStack];
-  int sp = 1;
-  stack[0] = 0;
+  int sp = 0;
+  int node = 0;
   float best_t = kTMax;
   int best_i = 0;
-
-  while (sp > 0) {
-    const int rid = stack[--sp];
-    float f[16];
-    const float4* rec = nodes + 4 * static_cast<size_t>(rid);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 v = __ldg(rec + q);
-      f[4 * q + 0] = v.x;
-      f[4 * q + 1] = v.y;
-      f[4 * q + 2] = v.z;
-      f[4 * q + 3] = v.w;
-    }
-
-    bool hit[2];
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      float tn, tf;
-      dpt::slab(f, 6 * c, ray, tn, tf);
-      hit[c] = kOccluded ? (tn <= tf && tf >= 0.f && tn < md)
-                         : (tn <= tf && tf >= 0.f && tn <= best_t);
-    }
-    const float lptr = f[12];
-    const float rptr = f[13];
-
-    // Leaf children at once, left before right.
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const float ptr = c == 0 ? lptr : rptr;
-      if (!(hit[c] && ptr < 0.f)) continue;
-      const int row = static_cast<int>(-ptr - 1.0f);
-      if (dpt::leaf_row<kOccluded>(tris + 32 * static_cast<size_t>(row), ray,
-                                   md, dpt::kEps, best_t, best_i)) {
-        out_tri[r] = 1;
-        return;
-      }
-    }
-
-    // Internal children: far first, so the near one pops first.
-    const bool push_l = hit[0] && lptr >= 0.f;
-    const bool push_r = hit[1] && rptr >= 0.f;
-    const int lid = static_cast<int>(lptr);
-    const int rid2 = static_cast<int>(rptr);
-    if (push_l && push_r) {
-      const bool left_near = (static_cast<int>(f[14]) >> octant) & 1;
-      stack[sp++] = left_near ? rid2 : lid;
-      stack[sp++] = left_near ? lid : rid2;
-    } else if (push_l) {
-      stack[sp++] = lid;
-    } else if (push_r) {
-      stack[sp++] = rid2;
+  while (node >= 0) {
+    if (wide_visit<kOccluded>(nodes, tris, ray, octant, md, node, stack, sp,
+                              best_t, best_i)) {
+      out_tri[r] = 1;
+      return;
     }
   }
-
   if (kOccluded) {
     out_tri[r] = 0;
   } else {
@@ -127,13 +136,14 @@ __global__ void __launch_bounds__(kBlock) wide_traverse_kernel(
 
 }  // namespace
 
-// Launch on `stream`.  Nearest mode writes out_t (min t, 1e30 on a miss)
-// and out_tri (triangle id); occluded mode writes out_tri (0/1) only, and
-// ignores out_t.  Returns cudaGetLastError() after the launch.
+// Launch on `stream`, with the arguments of dpt_quad_traverse; K2 walks one
+// ray per lane only, so `group` must be 0.
 extern "C" int dpt_wide_traverse(const float* origin, const float* direction,
                                  const float* max_dist, const float* nodes,
                                  const float* tris, int n_rays, int occluded,
-                                 float* out_t, int* out_tri, void* stream) {
+                                 float* out_t, int* out_tri, void* stream,
+                                 int group) {
+  if (group) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return static_cast<int>(cudaSuccess);
   const dim3 grid((n_rays + kBlock - 1) / kBlock);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -149,15 +159,14 @@ extern "C" int dpt_wide_traverse(const float* origin, const float* direction,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Registers and local memory (stack + spills) per thread of each mode.
-extern "C" int dpt_wide_traverse_attrs(int occluded, int* num_regs,
-                                       int* local_bytes) {
-  cudaFuncAttributes attr;
-  const cudaError_t err =
-      occluded ? cudaFuncGetAttributes(&attr, wide_traverse_kernel<true>)
-               : cudaFuncGetAttributes(&attr, wide_traverse_kernel<false>);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *num_regs = attr.numRegs;
-  *local_bytes = static_cast<int>(attr.localSizeBytes);
-  return 0;
+// Registers and local memory (stack + spills) per thread, and resident
+// blocks per SM, of each mode (`group` must be 0).
+extern "C" int dpt_wide_traverse_attrs(int occluded, int group,
+                                       int* num_regs, int* local_bytes,
+                                       int* blocks_per_sm) {
+  if (group) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn =
+      occluded ? reinterpret_cast<const void*>(wide_traverse_kernel<true>)
+               : reinterpret_cast<const void*>(wide_traverse_kernel<false>);
+  return dpt::func_attrs(fn, num_regs, local_bytes, blocks_per_sm);
 }

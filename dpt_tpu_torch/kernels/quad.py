@@ -13,8 +13,11 @@ Counterpart of `dpt_tpu/kernels/pallas_quad.py`.
   - `refit_quad` refits the packed tables to moved vertices with torch
     gathers and min / max, for vertex optimisation.
   - `quad_nearest` / `quad_occluded` launch the hand-written CUDA kernel
-    (csrc/quad_traverse.cu) for CUDA tensors and run the plain PyTorch walk
-    (`quad_nearest_reference` / `quad_occluded_reference`) for CPU tensors.
+    (csrc/quad_traverse.cu: one ray per lane, or per group of four lanes
+    for a stream of at most one wave of resident lanes, as
+    `build.walk_variant` picks) for CUDA tensors and run the plain PyTorch
+    walk (`quad_nearest_reference` / `quad_occluded_reference`) for CPU
+    tensors.
     There is no fallback between the two: a CUDA tensor launches the kernel
     or raises.
 
@@ -370,7 +373,8 @@ def _walk_reference(origin, direction, max_dist, accel: QuadAccel,
     still walking.  Returns (t [R] f32, tri [R] int32) for nearest mode and
     (unused, occ [R] int32) for occluded mode, as the kernel does.  With a
     `stats` dict, adds the records visited and triangles tested to its
-    "node_visits" and "tri_tests"."""
+    "node_visits" and "tri_tests", and sets its "ray_visits" to the records
+    each ray visited ([R] int64; 0 for a masked lane)."""
     R = origin.shape[0]
     dev = origin.device
     out_t = torch.full((R,), T_MAX, dtype=torch.float32, device=dev)
@@ -396,9 +400,13 @@ def _walk_reference(origin, direction, max_dist, accel: QuadAccel,
     best_i = torch.zeros((n,), dtype=torch.int32, device=dev)
     occ = torch.zeros((n,), dtype=torch.bool, device=dev)
     visits = tests = 0
+    ray_visits = (torch.zeros((R,), dtype=torch.int64, device=dev)
+                  if stats is not None else None)
 
     while n:
         visits += n
+        if ray_visits is not None:
+            ray_visits[ids] += 1
         rows = torch.arange(n, device=dev)
         ray = (o[:, 0], o[:, 1], o[:, 2], inv[:, 0], inv[:, 1], inv[:, 2])
         sp = sp - 1
@@ -479,6 +487,7 @@ def _walk_reference(origin, direction, max_dist, accel: QuadAccel,
     if stats is not None:
         stats["node_visits"] = stats.get("node_visits", 0) + visits
         stats["tri_tests"] = stats.get("tri_tests", 0) + tests
+        stats["ray_visits"] = ray_visits
     return out_t, out_i
 
 
@@ -524,41 +533,58 @@ def _check_inputs(origin, direction, max_dist, accel: QuadAccel):
         raise ValueError("accel.tris must have shape [L, 128]")
 
 
-def _launch(origin, direction, max_dist, accel: QuadAccel, occluded: bool):
-    """Launch K1 on the current stream: (t [R] f32, tri/occ [R] int32)."""
-    from dpt_tpu_torch.kernels.build import launch_walk
+def _launch(origin, direction, max_dist, accel: QuadAccel, occluded: bool,
+            variant=None):
+    """Launch K1 on the current stream: (t [R] f32 or None, tri/occ [R]
+    int32), in the design build.walk_variant picks or `variant` forces."""
+    from dpt_tpu_torch.kernels.build import launch_walk, walk_variant
 
+    R = origin.shape[0]
+    variant = walk_variant("quad_traverse", R, occluded, origin.device,
+                           variant)
     out = launch_walk("quad_traverse", origin, direction, max_dist,
-                      accel.nodes_flat, accel.tris, occluded)
-    if origin.shape[0]:
+                      accel.nodes_flat, accel.tris, occluded, variant)
+    if R:
         launch_counts["occluded" if occluded else "nearest"] += 1
     return out
 
 
-def _dispatch(origin, direction, max_dist, accel, cfg, occluded: bool):
+def _dispatch(origin, direction, max_dist, accel, cfg, occluded: bool,
+              variant=None):
+    """(t, tri) in nearest mode, (t or None, occluded) in occluded mode.  In
+    nearest mode `max_dist` is None: the kernel never reads one, and the
+    plain walk gets zeros.  `variant` forces a kernel design (the plain walk
+    has one)."""
+    from dpt_tpu_torch.kernels.build import check_variant
+
     check_stack(accel, cfg)
     _check_inputs(origin, direction, max_dist, accel)
+    check_variant("quad_traverse", variant)
     if origin.is_cuda:
-        return _launch(origin, direction, max_dist, accel, occluded)
+        return _launch(origin, direction, max_dist, accel, occluded, variant)
     if origin.device.type != "cpu":
         raise ValueError(f"quad walk: unsupported device {origin.device}")
+    if max_dist is None:
+        max_dist = torch.zeros((origin.shape[0],), dtype=torch.float32,
+                               device=origin.device)
     return _walk_reference(origin, direction, max_dist, accel, occluded,
                            cfg.bvh_stack_depth)
 
 
-def quad_nearest(origin, direction, accel: QuadAccel, cfg):
+def quad_nearest(origin, direction, accel: QuadAccel, cfg, *, variant=None):
     """Nearest hit via the 4-wide walk: (hit [R] bool, t [R] f32, tri [R]
-    int32).  CUDA tensors launch the kernel; CPU tensors take the plain
-    walk."""
-    md = torch.zeros((origin.shape[0],), dtype=torch.float32,
-                     device=origin.device)
-    t, tri = _dispatch(origin, direction, md, accel, cfg, False)
-    hit = t < T_MAX
-    return hit, t, torch.where(hit, tri, torch.zeros_like(tri))
+    int32, 0 on a miss).  CUDA tensors launch the kernel, in the design the
+    stream's size picks (build.walk_variant) unless `variant` ("lane" or
+    "group") forces one; CPU tensors take the plain walk."""
+    t, tri = _dispatch(origin, direction, None, accel, cfg, False, variant)
+    return t < T_MAX, t, tri
 
 
-def quad_occluded(origin, direction, max_dist, accel: QuadAccel, cfg):
+def quad_occluded(origin, direction, max_dist, accel: QuadAccel, cfg, *,
+                  variant=None):
     """Any-hit query via the 4-wide walk: occluded [R] bool (a hit with
-    t < max_dist; lanes with max_dist <= 0 are never occluded)."""
-    _, occ = _dispatch(origin, direction, max_dist, accel, cfg, True)
+    t < max_dist; lanes with max_dist <= 0 are never occluded).  `variant`
+    as for quad_nearest."""
+    _, occ = _dispatch(origin, direction, max_dist, accel, cfg, True,
+                       variant)
     return occ.bool()

@@ -221,7 +221,8 @@ def _walk_reference(origin, direction, max_dist, accel: WideAccel,
     still walking.  Returns (t [R] f32, tri [R] int32) for nearest mode and
     (unused, occ [R] int32) for occluded mode, as the kernel does.  With a
     `stats` dict, adds the records visited and triangles tested to its
-    "node_visits" and "tri_tests"."""
+    "node_visits" and "tri_tests", and sets its "ray_visits" to the records
+    each ray visited ([R] int64; 0 for a masked lane)."""
     R = origin.shape[0]
     dev = origin.device
     out_t = torch.full((R,), T_MAX, dtype=torch.float32, device=dev)
@@ -245,9 +246,13 @@ def _walk_reference(origin, direction, max_dist, accel: WideAccel,
     best_i = torch.zeros((n,), dtype=torch.int32, device=dev)
     occ = torch.zeros((n,), dtype=torch.bool, device=dev)
     visits = tests = 0
+    ray_visits = (torch.zeros((R,), dtype=torch.int64, device=dev)
+                  if stats is not None else None)
 
     while n:
         visits += n
+        if ray_visits is not None:
+            ray_visits[ids] += 1
         rows = torch.arange(n, device=dev)
         ray = (o[:, 0], o[:, 1], o[:, 2], inv[:, 0], inv[:, 1], inv[:, 2])
         sp = sp - 1
@@ -313,6 +318,7 @@ def _walk_reference(origin, direction, max_dist, accel: WideAccel,
     if stats is not None:
         stats["node_visits"] = stats.get("node_visits", 0) + visits
         stats["tri_tests"] = stats.get("tri_tests", 0) + tests
+        stats["ray_visits"] = ray_visits
     return out_t, out_i
 
 
@@ -358,41 +364,58 @@ def _check_inputs(origin, direction, max_dist, accel: WideAccel):
         raise ValueError("accel.nodes must hold n_internal records")
 
 
-def _launch(origin, direction, max_dist, accel: WideAccel, occluded: bool):
-    """Launch K2 on the current stream: (t [R] f32, tri/occ [R] int32)."""
-    from dpt_tpu_torch.kernels.build import launch_walk
+def _launch(origin, direction, max_dist, accel: WideAccel, occluded: bool,
+            variant=None):
+    """Launch K2 on the current stream: (t [R] f32 or None, tri/occ [R]
+    int32), in the design build.walk_variant picks or `variant` forces."""
+    from dpt_tpu_torch.kernels.build import launch_walk, walk_variant
 
+    R = origin.shape[0]
+    variant = walk_variant("wide_traverse", R, occluded, origin.device,
+                           variant)
     out = launch_walk("wide_traverse", origin, direction, max_dist,
-                      accel.nodes, accel.tris, occluded)
-    if origin.shape[0]:
+                      accel.nodes, accel.tris, occluded, variant)
+    if R:
         launch_counts["occluded" if occluded else "nearest"] += 1
     return out
 
 
-def _dispatch(origin, direction, max_dist, accel, cfg, occluded: bool):
+def _dispatch(origin, direction, max_dist, accel, cfg, occluded: bool,
+              variant=None):
+    """(t, tri) in nearest mode, (t or None, occluded) in occluded mode.  In
+    nearest mode `max_dist` is None: the kernel never reads one, and the
+    plain walk gets zeros.  `variant` forces a kernel design (the plain walk
+    has one)."""
+    from dpt_tpu_torch.kernels.build import check_variant
+
     check_stack(accel, cfg)
     _check_inputs(origin, direction, max_dist, accel)
+    check_variant("wide_traverse", variant)
     if origin.is_cuda:
-        return _launch(origin, direction, max_dist, accel, occluded)
+        return _launch(origin, direction, max_dist, accel, occluded, variant)
     if origin.device.type != "cpu":
         raise ValueError(f"wide walk: unsupported device {origin.device}")
+    if max_dist is None:
+        max_dist = torch.zeros((origin.shape[0],), dtype=torch.float32,
+                               device=origin.device)
     return _walk_reference(origin, direction, max_dist, accel, occluded,
                            cfg.bvh_stack_depth)
 
 
-def wide_nearest(origin, direction, accel: WideAccel, cfg):
+def wide_nearest(origin, direction, accel: WideAccel, cfg, *, variant=None):
     """Nearest hit via the paired-children walk: (hit [R] bool, t [R] f32,
-    tri [R] int32).  CUDA tensors launch the kernel; CPU tensors take the
+    tri [R] int32, 0 on a miss).  CUDA tensors launch the kernel, one ray
+    per lane (`variant` may name that design, "lane"); CPU tensors take the
     plain walk."""
-    md = torch.zeros((origin.shape[0],), dtype=torch.float32,
-                     device=origin.device)
-    t, tri = _dispatch(origin, direction, md, accel, cfg, False)
-    hit = t < T_MAX
-    return hit, t, torch.where(hit, tri, torch.zeros_like(tri))
+    t, tri = _dispatch(origin, direction, None, accel, cfg, False, variant)
+    return t < T_MAX, t, tri
 
 
-def wide_occluded(origin, direction, max_dist, accel: WideAccel, cfg):
+def wide_occluded(origin, direction, max_dist, accel: WideAccel, cfg, *,
+                  variant=None):
     """Any-hit query via the paired-children walk: occluded [R] bool (a hit
-    with t < max_dist; lanes with max_dist <= 0 are never occluded)."""
-    _, occ = _dispatch(origin, direction, max_dist, accel, cfg, True)
+    with t < max_dist; lanes with max_dist <= 0 are never occluded).
+    `variant` as for wide_nearest."""
+    _, occ = _dispatch(origin, direction, max_dist, accel, cfg, True,
+                       variant)
     return occ.bool()

@@ -2,6 +2,7 @@
 one forward batch goes, on the card.
 
     python scripts/torch_render_profile.py [--batches 4] [--pairs 5]
+        [--configs flagship,box512] [--variant auto|lane|group]
 
 Two configurations:
   flagship: sylveon512 at 1024², the procedural sphere of 65,024
@@ -16,7 +17,14 @@ then serial, ...), so that drift of the shared host falls on both loops:
   pipelined: `render_progressive` (batch_ms from its on_batch metrics).
 Then one more serial batch of each runs under `torch.profiler`: device
 time by kernel family (scripts/torch_profile_step.py's families), kernels
-run, launches made, and the device busy share of the batch.
+run, launches made, and the device busy share of the batch.  For the
+flagship it also lists every K1 launch of that batch in order (mode, rays,
+kernel ms, the design `build.walk_variant` picked) and splits K1's device
+time between launches of more rays than one wave of resident lanes
+(`build.resident_lanes`: resident blocks per SM x 128 x SMs of the
+one-ray-per-lane kernel in each mode) and the others.  `--variant` forces
+K1's design in the profiled batch (auto: the wrapper's pick).  `--pairs 0`
+skips the pairs.
 Prints the card's `nvidia-smi` name and power limit, one line per run, and
 one JSON line with every batch_ms, the wall ms per batch of each run
 (dispatch of the first batch to the last batch complete, over the batch
@@ -81,15 +89,67 @@ def pipelined(scene, camera, cfg, accel, n):
     return img, [r["batch_ms"] for r in rows], wall
 
 
-def profile_batch(scene, camera, cfg, accel):
+def k1_launches(prof, sizes):
+    """Every K1 launch of a profiled run, in order: the wrapper's (mode,
+    rays) beside the kernel's device ms, and K1's device ms split by launch
+    size against one wave of resident lanes of its mode."""
+    from torch.autograd import DeviceType
+
+    from dpt_tpu_torch.kernels import build
+
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and "quad_traverse_kernel" in e.name),
+                 key=lambda e: e.time_range.start)
+    if len(evs) != len(sizes):
+        raise RuntimeError(f"{len(sizes)} K1 launches, the profiler saw "
+                           f"{len(evs)}")
+    wave = {m: build.resident_lanes("quad_traverse", m == "occluded")
+            for m in ("nearest", "occluded")}
+    rows, split = [], {"above_one_wave_ms": 0.0, "below_one_wave_ms": 0.0,
+                       "above_one_wave_launches": 0}
+    for (mode, n, variant), e in zip(sizes, evs):
+        if ("<true" in e.name) != (mode == "occluded"):
+            raise RuntimeError(f"launch order differs: {mode} vs {e.name}")
+        ms = e.time_range.elapsed_us() / 1e3
+        rows.append({"mode": mode, "rays": n, "kernel_ms": ms,
+                     "variant": build.walk_variant(
+                         "quad_traverse", n, mode == "occluded",
+                         variant=variant)})
+        above = n > wave[mode]
+        split["above_one_wave_ms" if above else "below_one_wave_ms"] += ms
+        split["above_one_wave_launches"] += int(above)
+    return {"resident_lanes": wave, "launches": rows, **split}
+
+
+def profile_batch(scene, camera, cfg, accel, variant=None):
     """Device ms by family, kernels run, launches and busy share of one
-    serial batch."""
+    serial batch, and its K1 launches, in design `variant` (None: the
+    wrapper's pick), when it walks the quad BVH."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, times, _ = serial(scene, camera, cfg, accel, 1)
+    from dpt_tpu_torch.kernels import quad
+
+    sizes = []
+    launch = quad._launch
+
+    def spy(origin, direction, max_dist, accel, occluded, v=None):
+        sizes.append(("occluded" if occluded else "nearest",
+                      int(origin.shape[0]), variant or v))
+        return launch(origin, direction, max_dist, accel, occluded,
+                      variant or v)
+
+    quad._launch = spy
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # A first kernel, so that a launch the profiler misses at the
+            # start of its window is not one of K1's.
+            torch.ones(1, device=scene.device).add_(1)
+            _, times, _ = serial(scene, camera, cfg, accel, 1)
+    finally:
+        quad._launch = launch
     by_family = {}
     kernels_run = launches = 0
     for e in prof.key_averages():
@@ -101,17 +161,23 @@ def profile_batch(scene, camera, cfg, accel):
         elif e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
             launches += e.count
     device_ms = sum(by_family.values())
-    return {"batch_ms": times[0], "device_ms": device_ms,
-            "device_busy_share": device_ms / times[0],
-            "device_ms_by_family": dict(sorted(by_family.items(),
-                                               key=lambda kv: -kv[1])),
-            "kernels_run": kernels_run, "launches": launches}
+    out = {"batch_ms": times[0], "device_ms": device_ms,
+           "device_busy_share": device_ms / times[0],
+           "device_ms_by_family": dict(sorted(by_family.items(),
+                                              key=lambda kv: -kv[1])),
+           "kernels_run": kernels_run, "launches": launches}
+    if sizes:
+        out["k1"] = k1_launches(prof, sizes)
+    return out
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=4)
     ap.add_argument("--pairs", type=int, default=5)
+    ap.add_argument("--configs", default="flagship,box512")
+    ap.add_argument("--variant", default="auto",
+                    choices=("auto", "lane", "group"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -128,7 +194,8 @@ def main(argv=None):
                    preset("box512", kernels="intersect"), None),
     }
     out = {}
-    for name, (scene, cfg, accel) in configs.items():
+    for name in args.configs.split(","):
+        scene, cfg, accel = configs[name]
         # Warm-up: first launches, allocator, cuBLAS / library handles.
         render_sample(scene, camera, cfg, 0, accel)
         res = {"serial": [], "pipelined": [], "ratio": []}
@@ -147,10 +214,13 @@ def main(argv=None):
                       f"{statistics.median(times):.2f}, wall ms per batch "
                       f"{wall_of[way]:.2f}", flush=True)
             res["ratio"].append(wall_of["pipelined"] / wall_of["serial"])
-        res["median_ratio"] = statistics.median(res["ratio"])
-        res["same_image"] = bool(torch.equal(images["serial"],
-                                             images["pipelined"]))
-        res["profile"] = profile_batch(scene, camera, cfg, accel)
+        if args.pairs:
+            res["median_ratio"] = statistics.median(res["ratio"])
+            res["same_image"] = bool(torch.equal(images["serial"],
+                                                 images["pipelined"]))
+        res["profile"] = profile_batch(
+            scene, camera, cfg, accel,
+            None if args.variant == "auto" else args.variant)
         print(f"{name} profiled batch: {res['profile']}", flush=True)
         out[name] = res
     print(json.dumps({"device": torch.cuda.get_device_name(0),

@@ -6,8 +6,13 @@
     it: hit and occluded exact, t allclose (rtol 1e-5, atol 1e-6), tri
     exact except at equal-t ties (the TPU kernel breaks ties by its
     tile-wide visit order, the port by the ray's own).
+  - The plain walk's per-ray visit counts (`stats["ray_visits"]`, which
+    chip_smoke.py turns into lane utilisation) on a hand-built chain.
   - Tests marked `cuda` compare the CUDA kernel with the plain walk on the
-    card, exactly; they skip without one.
+    card, exactly, in both designs (one ray per lane, one per group of
+    four lanes): streams of several waves, of 1, 31 and 33 rays,
+    all-masked occluded streams, a tree at the stack guard's depth and the
+    wrapper's switch-over size; they skip without one.
 """
 
 import dataclasses
@@ -360,6 +365,201 @@ def test_cpu_walk_launches_no_kernel():
     tq.quad_nearest(o, d, acc, CFG)
     tq.quad_occluded(o, d, md, acc, CFG)
     assert tq.launch_counts == {"nearest": 0, "occluded": 0}
+
+
+def test_variant_names_a_kernel_design():
+    """Either design may be asked for on any device (the CPU's plain walk
+    has one: same results); another name is refused."""
+    _, _, acc = _port_tables("sphere-sah8")
+    o, d, md = _rays(64, seed=3, spread=1.5)
+    want = tq.quad_nearest(o, d, acc, CFG)
+    for v in ("lane", "group"):
+        got = tq.quad_nearest(o, d, acc, CFG, variant=v)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="walk variant"):
+        tq.quad_nearest(o, d, acc, CFG, variant="warp")
+    with pytest.raises(ValueError, match="walk variant"):
+        tq.quad_occluded(o, d, md, acc, CFG, variant="")
+
+
+def chain_bvh(n):
+    """A binary BVH over 2n + 1 triangles with one yz footprint (the half
+    of [-0.5, 0.5]^2 below y + z = 0) in planes x = const: chain node i
+    (i < n) has the children L_i, an internal node over the leaves of the
+    triangles at x = i + 0.25 and i + 0.5, and chain node i + 1; chain
+    node n is the leaf of the triangle at x = n + 0.25.  A ray along -x
+    walks down the chain first and pushes one record per level.  Returns
+    (vertices, indices, accel.bvh.BVH); node 0 is the root."""
+    xs = [x for i in range(n) for x in (i + 0.25, i + 0.5)] + [n + 0.25]
+    v = np.array([[(x, -0.5, -0.5), (x, 0.5, -0.5), (x, -0.5, 0.5)]
+                  for x in xs], np.float32).reshape(-1, 3)
+    idx = np.arange(v.shape[0], dtype=np.int32).reshape(-1, 3)
+    tmin, tmax = v[idx].min(axis=1), v[idx].max(axis=1)
+    lo, hi, left, right = [], [], [], []
+
+    def node(lft, rgt, mn, mx):
+        lo.append(mn)
+        hi.append(mx)
+        left.append(lft)
+        right.append(rgt)
+        return len(lo) - 1
+
+    def inner(me, a, b):
+        left[me], right[me] = a, b
+        lo[me], hi[me] = np.minimum(lo[a], lo[b]), np.maximum(hi[a], hi[b])
+
+    def chain(i):
+        if i == n:
+            return node(-1, 2 * n, tmin[2 * n], tmax[2 * n])
+        me, pair = node(0, 0, None, None), node(0, 0, None, None)
+        inner(pair, *(node(-1, k, tmin[k], tmax[k])
+                      for k in (2 * i, 2 * i + 1)))
+        inner(me, pair, chain(i + 1))
+        return me
+
+    chain(0)
+    return v, idx, tb.BVH(
+        node_min=np.array(lo, np.float32), node_max=np.array(hi, np.float32),
+        node_left=np.array(left, np.int32),
+        node_right=np.array(right, np.int32),
+        tri_order=np.arange(idx.shape[0], dtype=np.int32))
+
+
+def chain_rays(n_rays, n, seed):
+    """Rays along +x from x = -1 and along -x from x = n + 2, through the
+    footprint square, slightly tilted; half hit a triangle."""
+    rng = np.random.default_rng(seed)
+    sign = np.where(np.arange(n_rays) % 2 == 0, 1.0, -1.0)
+    o = np.stack([np.where(sign > 0, -1.0, n + 2.0),
+                  *rng.uniform(-0.45, 0.45, (2, n_rays))], axis=1)
+    d = np.concatenate([sign[:, None],
+                        rng.normal(0.0, 0.01, (n_rays, 2))], axis=1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    md = rng.uniform(-0.5, n + 3.0, n_rays)
+    return tuple(torch.as_tensor(x.astype(np.float32)) for x in (o, d, md))
+
+
+def _chain_accel(n):
+    v, idx, bvh = chain_bvh(n)
+    return v, idx, tq.pack_quad(bvh, v[idx[:, 0]], v[idx[:, 1]],
+                                v[idx[:, 2]], device="cpu")
+
+
+def test_plain_walk_counts_visits_per_ray():
+    """A ray that misses the root's boxes visits the root record only; a
+    ray along -x inside every box that misses every triangle visits every
+    record; a masked lane visits none; the counts sum to node_visits and
+    the results are the walk's without stats."""
+    _, _, acc = _chain_accel(3)
+    o = torch.tensor([[-1.0, 2.0, 2.0], [6.0, 0.3, 0.3], [-1.0, -0.3, -0.3],
+                      [6.0, -0.3, -0.3]])
+    d = torch.tensor([[1.0, 0.0, 0.0], [-1.0, 0.0, 0.0], [1.0, 0.0, 0.0],
+                      [-1.0, 0.0, 0.0]])
+    md = torch.tensor([10.0, 10.0, -1.0, 10.0])
+    for occluded in (False, True):
+        stats = {}
+        got = tq._walk_reference(o, d, md, acc, occluded, 64, stats=stats)
+        want = tq._walk_reference(o, d, md, acc, occluded, 64)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        visits = stats["ray_visits"]
+        assert visits.dtype == torch.int64 and visits.shape == (4,)
+        assert visits[0] == 1 and visits[1] == acc.n_wide == 3
+        assert int(visits.sum()) == stats["node_visits"]
+        assert (visits[2] == 0) == occluded
+
+
+def test_plain_walk_at_stack_guard_depth():
+    """The deepest quad tree the kernel's stack takes (3 * 20 + 2 = 62 of
+    64 slots) walks like brute force; one level deeper is refused."""
+    v, idx, acc = _chain_accel(39)
+    assert acc.max_depth == 20
+    o, d, md = chain_rays(256, 39, seed=4)
+    cfg = CFG.replace(bvh_stack_depth=64)
+    h, t, i = tq.quad_nearest(o, d, acc, cfg)
+    corners = (torch.as_tensor(v[idx[:, k]]) for k in range(3))
+    bh, bt, bi, _, _ = brute_force_nearest(o, d, *corners)
+    assert torch.equal(h, bh) and h.any() and not h.all()
+    assert torch.equal(i, bi)
+    np.testing.assert_allclose(t[h].numpy(), bt[h].numpy(), rtol=1e-5,
+                               atol=1e-6)
+    assert torch.equal(tq.quad_occluded(o, d, md, acc, cfg),
+                       bh & (bt < md) & (md > 0))
+    with pytest.raises(ValueError, match="kernel capacity"):
+        tq.quad_nearest(o, d, _chain_accel(40)[2],
+                        CFG.replace(bvh_stack_depth=128))
+
+
+def _card_matches_plain(acc, o, d, md, cfg=CFG):
+    """K1 on the card equals the plain walk exactly, in the design the
+    wrapper picks and in each design forced, one launch per call."""
+    ph, pt, pi = tq.quad_nearest_reference(o, d, acc, cfg)
+    po = tq.quad_occluded_reference(o, d, md, acc, cfg)
+    for variant in (None, "lane", "group"):
+        tq.reset_launch_counts()
+        kh, kt, ki = tq.quad_nearest(o, d, acc, cfg, variant=variant)
+        ko = tq.quad_occluded(o, d, md, acc, cfg, variant=variant)
+        torch.cuda.synchronize()
+        assert tq.launch_counts == {"nearest": 1, "occluded": 1}
+        assert torch.equal(kh, ph) and torch.equal(kt, pt)
+        assert torch.equal(ki, pi) and torch.equal(ko, po)
+    return ph, po
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("above", [0, 1])
+def test_both_designs_at_the_switch_over_on_card(cuda, above):
+    """One wave of resident lanes is the largest stream the wrapper walks
+    in groups; one ray more goes one ray per lane."""
+    from dpt_tpu_torch.kernels.build import resident_lanes, walk_variant
+
+    _, _, acc = _port_tables("sphere-sah8")
+    n = resident_lanes("quad_traverse", False) + above
+    o, d, md = (x.to(cuda) for x in _rays(n, seed=37, spread=1.5))
+    want = "lane" if above else "group"
+    assert walk_variant("quad_traverse", n, False, cuda) == want
+    _card_matches_plain(acc.to(cuda), o, d, md)
+
+
+@pytest.mark.cuda
+def test_kernel_several_waves_on_card(cuda):
+    """A stream of three waves of resident lanes and a ragged end."""
+    from dpt_tpu_torch.kernels.build import kernel_attributes
+
+    _, _, acc = _port_tables("sphere-sah8")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    lanes = max(kernel_attributes("quad_traverse", m)["blocks_per_sm"]
+                for m in (False, True)) * 128 * sms
+    o, d, md = (x.to(cuda) for x in _rays(3 * lanes + 5, seed=33, spread=1.5))
+    kh, ko = _card_matches_plain(acc.to(cuda), o, d, md)
+    assert kh.any() and not kh.all() and ko.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays", [1, 31, 33])
+def test_kernel_small_streams_on_card(cuda, n_rays):
+    _, _, acc = _port_tables("knot-sah8")
+    o, d, md = _rays(64, seed=34, spread=1.5)
+    o, d, md = (x[16:16 + n_rays].to(cuda) for x in (o, d, md))
+    _card_matches_plain(acc.to(cuda), o, d, md)
+
+
+@pytest.mark.cuda
+def test_kernel_all_masked_occluded_on_card(cuda):
+    _, _, acc = _port_tables("sphere-sah8")
+    o, d, _ = _rays(5000, seed=35, spread=1.5)
+    md = torch.where(torch.arange(5000) % 2 == 0, 0.0, -1.0)
+    o, d, md = (x.to(cuda) for x in (o, d, md))
+    _, ko = _card_matches_plain(acc.to(cuda), o, d, md)
+    assert not ko.any()
+
+
+@pytest.mark.cuda
+def test_kernel_at_stack_guard_depth_on_card(cuda):
+    _, _, acc = _chain_accel(39)
+    o, d, md = (x.to(cuda) for x in chain_rays(4096, 39, seed=36))
+    kh, _ = _card_matches_plain(acc.to(cuda), o, d, md,
+                                CFG.replace(bvh_stack_depth=64))
+    assert kh.any() and not kh.all()
 
 
 @pytest.mark.cuda

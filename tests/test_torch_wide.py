@@ -7,8 +7,11 @@
     tests/test_pallas_wide.py runs it: hit and occluded exact, t allclose
     (rtol 1e-5, atol 1e-6), tri exact except at equal-t ties (the TPU kernel
     orders its walk by a tile-wide octant vote, the port by the ray's own).
+  - The plain walk's per-ray visit counts on a hand-built chain.
   - Tests marked `cuda` compare the CUDA kernel with the plain walk on the
-    card, exactly; they skip without one.
+    card, exactly: streams of several waves, of 1, 31 and 33 rays,
+    all-masked occluded streams and a tree at the stack guard's depth;
+    they skip without one.
 """
 
 import dataclasses
@@ -25,6 +28,7 @@ from dpt_tpu_torch.kernels import wide as tw
 from dpt_tpu_torch.render.intersect import brute_force_nearest, moller_trumbore
 from dpt_tpu_torch.scene.builder import knot_scene
 from dpt_tpu_torch.utils.convert import wide_accel_from_arrays
+from test_torch_quad import chain_bvh, chain_rays
 
 torch.set_num_threads(2)
 CPU = "cpu"
@@ -278,6 +282,19 @@ def test_stack_guard_and_bad_inputs():
     assert tw.launch_counts == {"nearest": 0, "occluded": 0}
 
 
+def test_variant_names_a_kernel_design():
+    """K2 has one design, one ray per lane: "lane" may be asked for on any
+    device (the CPU's plain walk: same results); "group" and other names
+    are refused."""
+    _, acc = _port_tables("sphere-sah8")
+    o, d, md = _rays(64, seed=3, spread=1.5)
+    assert torch.equal(tw.wide_occluded(o, d, md, acc, CFG, variant="lane"),
+                       tw.wide_occluded(o, d, md, acc, CFG))
+    for bad in ("group", "warp"):
+        with pytest.raises(ValueError, match="walk variant"):
+            tw.wide_nearest(o, d, acc, CFG, variant=bad)
+
+
 def test_pallas_render_matches_quad_and_brute():
     scene = T.procedural_scene(n_tris_target=800, device=CPU)
     cam = T.OrbitCamera(yaw=20.0).camera(CPU)
@@ -291,6 +308,115 @@ def test_pallas_render_matches_quad_and_brute():
     assert torch.equal(img_w, img_q)
     np.testing.assert_allclose(img_w.numpy(), img_b.numpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+def _chain_accel(n):
+    v, idx, bvh = chain_bvh(n)
+    return v, idx, tw.pack_wide(bvh, v[idx[:, 0]], v[idx[:, 1]],
+                                v[idx[:, 2]], device=CPU)
+
+
+def test_plain_walk_counts_visits_per_ray():
+    """A ray that misses the root's boxes visits the root record only; a
+    ray along -x inside every box that misses every triangle visits every
+    internal record; a masked lane visits none; the counts sum to
+    node_visits and the results are the walk's without stats."""
+    _, _, acc = _chain_accel(3)
+    o = torch.tensor([[-1.0, 2.0, 2.0], [6.0, 0.3, 0.3], [-1.0, -0.3, -0.3],
+                      [6.0, -0.3, -0.3]])
+    d = torch.tensor([[1.0, 0.0, 0.0], [-1.0, 0.0, 0.0], [1.0, 0.0, 0.0],
+                      [-1.0, 0.0, 0.0]])
+    md = torch.tensor([10.0, 10.0, -1.0, 10.0])
+    for occluded in (False, True):
+        stats = {}
+        got = tw._walk_reference(o, d, md, acc, occluded, 64, stats=stats)
+        want = tw._walk_reference(o, d, md, acc, occluded, 64)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        visits = stats["ray_visits"]
+        assert visits.dtype == torch.int64 and visits.shape == (4,)
+        assert visits[0] == 1 and visits[1] == acc.n_internal == 6
+        assert int(visits.sum()) == stats["node_visits"]
+        assert (visits[2] == 0) == occluded
+
+
+def test_plain_walk_at_stack_guard_depth():
+    """The deepest tree the kernel's stack takes (62 + 2 = 64 slots), where
+    rays along -x push one record per level, walks like brute force; one
+    level deeper is refused."""
+    v, idx, acc = _chain_accel(61)
+    assert acc.max_depth == 62
+    o, d, md = chain_rays(256, 61, seed=4)
+    cfg = CFG.replace(bvh_stack_depth=64)
+    h, t, i = tw.wide_nearest(o, d, acc, cfg)
+    corners = (torch.as_tensor(v[idx[:, k]]) for k in range(3))
+    bh, bt, bi, _, _ = brute_force_nearest(o, d, *corners)
+    assert torch.equal(h, bh) and h.any() and not h.all()
+    assert torch.equal(i, bi)
+    np.testing.assert_allclose(t[h].numpy(), bt[h].numpy(), rtol=1e-5,
+                               atol=1e-6)
+    assert torch.equal(tw.wide_occluded(o, d, md, acc, cfg),
+                       bh & (bt < md) & (md > 0))
+    with pytest.raises(ValueError, match="kernel capacity"):
+        tw.wide_nearest(o, d, _chain_accel(62)[2],
+                        CFG.replace(bvh_stack_depth=128))
+
+
+def _card_matches_plain(acc, o, d, md, cfg=CFG):
+    """K2 on the card equals the plain walk exactly, by default and with
+    its one design named, one launch per call."""
+    ph, pt, pi = tw.wide_nearest_reference(o, d, acc, cfg)
+    po = tw.wide_occluded_reference(o, d, md, acc, cfg)
+    for variant in (None, "lane"):
+        tw.reset_launch_counts()
+        kh, kt, ki = tw.wide_nearest(o, d, acc, cfg, variant=variant)
+        ko = tw.wide_occluded(o, d, md, acc, cfg, variant=variant)
+        torch.cuda.synchronize()
+        assert tw.launch_counts == {"nearest": 1, "occluded": 1}
+        assert torch.equal(kh, ph) and torch.equal(kt, pt)
+        assert torch.equal(ki, pi) and torch.equal(ko, po)
+    return ph, po
+
+
+@pytest.mark.cuda
+def test_kernel_several_waves_on_card(cuda):
+    """A stream of three waves of resident lanes and a ragged end."""
+    from dpt_tpu_torch.kernels.build import kernel_attributes
+
+    _, acc = _port_tables("sphere-sah8")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    lanes = max(kernel_attributes("wide_traverse", m)["blocks_per_sm"]
+                for m in (False, True)) * 128 * sms
+    o, d, md = (x.to(cuda) for x in _rays(3 * lanes + 5, seed=33, spread=1.5))
+    kh, ko = _card_matches_plain(acc.to(cuda), o, d, md)
+    assert kh.any() and not kh.all() and ko.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays", [1, 31, 33])
+def test_kernel_small_streams_on_card(cuda, n_rays):
+    _, acc = _port_tables("knot-sah8")
+    o, d, md = _rays(64, seed=34, spread=1.5)
+    o, d, md = (x[16:16 + n_rays].to(cuda) for x in (o, d, md))
+    _card_matches_plain(acc.to(cuda), o, d, md)
+
+
+@pytest.mark.cuda
+def test_kernel_all_masked_occluded_on_card(cuda):
+    _, acc = _port_tables("sphere-sah8")
+    o, d, _ = _rays(5000, seed=35, spread=1.5)
+    md = torch.where(torch.arange(5000) % 2 == 0, 0.0, -1.0)
+    o, d, md = (x.to(cuda) for x in (o, d, md))
+    _, ko = _card_matches_plain(acc.to(cuda), o, d, md)
+    assert not ko.any()
+
+
+@pytest.mark.cuda
+def test_kernel_at_stack_guard_depth_on_card(cuda):
+    _, _, acc = _chain_accel(61)
+    o, d, md = (x.to(cuda) for x in chain_rays(4096, 61, seed=36))
+    kh, _ = _card_matches_plain(acc.to(cuda), o, d, md,
+                                CFG.replace(bvh_stack_depth=64))
+    assert kh.any() and not kh.all()
 
 
 @pytest.mark.cuda
