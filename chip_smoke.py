@@ -30,7 +30,8 @@ printing one line or more:
   5. render   — the flagship forward render through the CLI (sylveon512 at
                 1024², 4 batches); the image must be finite, >= 0 and not
                 all zero, the PNG valid, and K1 launched 16 nearest + 16
-                occluded times per batch.
+                occluded times per batch, the 31 launches of each batch
+                after its primary query in groups of four lanes.
   6. devices  — the same config at 64² on the card (kernel) and on the CPU
                 (plain walk), allclose at rtol 1e-3, atol 2e-3.
   7. optimize — inverse rendering through the CLI at 1024²: a target
@@ -132,9 +133,9 @@ KERNELS = {
 # kernel -> its design on the card, for the kernels line.
 DESIGNS = {
     "quad_traverse": (
-        "one ray per lane above one wave of resident lanes, one ray per "
-        "group of 4 lanes (a child's slab and 2 leaf slots each) at or "
-        "below it; one-instruction NaN min/max, leaf loads a slot ahead, "
+        "one ray per group of 4 lanes (a child's slab and 2 leaf slots "
+        "each) up to kernels/quad.py GROUP_MAX_RAYS rays, one ray per lane "
+        "above; one-instruction NaN min/max, leaf loads a slot ahead, "
         "near child taken without a push; per-lane stack in local memory"),
     "wide_traverse": (
         "one ray per lane; one-instruction NaN min/max, leaf loads a slot "
@@ -340,14 +341,44 @@ def lane_utilisation(ray_visits, warp=32):
     return float(v.sum() / (warp * groups.max(dim=1).values.sum()))
 
 
+def walk_designs(kernel):
+    """{design: (nearest, occluded)} of one walk kernel, each called as the
+    public wrappers are and launching that design: K1 one ray per lane
+    and one per group of four lanes (forced through the wrapper's
+    `_launch`, which skips the checks the public call makes of the same
+    inputs), K2 one ray per lane (its public wrappers)."""
+    if kernel != "quad_traverse":
+        nearest, occluded, _, _ = walk_functions(kernel)
+        return {"lane": (nearest, occluded)}
+    m = walk_module(kernel)
+
+    def design(v):
+        def nearest(o, d, accel, cfg):
+            t, tri = m._launch(o, d, None, accel, False, v)
+            return t < m.T_MAX, t, tri
+
+        def occluded(o, d, md, accel, cfg):
+            return m._launch(o, d, md, accel, True, v)[1].bool()
+
+        return nearest, occluded
+
+    return {v: design(v) for v in ("lane", "group")}
+
+
+def picked_design(kernel, n_rays):
+    """The design the wrapper launches for a stream of `n_rays`."""
+    if kernel != "quad_traverse":
+        return "lane"
+    return walk_module(kernel).walk_design(n_rays)
+
+
 def compare_stream(kernel, name, inputs, accel, cfg, tag):
     """Every design of a walk kernel against its plain walk on one stream,
     exactly; returns per-mode stats: the wrapper's ms and the kernel's in
     the design the wrapper picks for this stream (what the render runs),
     and the kernel ms of each design."""
-    from dpt_tpu_torch.kernels.build import WALK_VARIANTS, walk_variant
-
     nearest, occluded, nearest_ref, occluded_ref = walk_functions(kernel)
+    designs = walk_designs(kernel)
     out = {}
     max_err = 0.0
     stats = {"nearest": {}, "occluded": {}}
@@ -356,9 +387,9 @@ def compare_stream(kernel, name, inputs, accel, cfg, tag):
                                  stats=stats["nearest"] if i == 0 else None)
         po = occluded_ref(o, d, md, accel, cfg,
                           stats=stats["occluded"] if i == 0 else None)
-        for v in WALK_VARIANTS[kernel]:
-            kh, kt, ki = nearest(o, d, accel, cfg, variant=v)
-            ko = occluded(o, d, md, accel, cfg, variant=v)
+        for v, (f_near, f_occ) in designs.items():
+            kh, kt, ki = f_near(o, d, accel, cfg)
+            ko = f_occ(o, d, md, accel, cfg)
             torch.cuda.synchronize()
             what = f"{kernel} ({v}) {name}"
             require(torch.equal(kh, ph), f"{what}: nearest hit differs")
@@ -370,14 +401,12 @@ def compare_stream(kernel, name, inputs, accel, cfg, tag):
     hit_frac = float(nearest(o, d, accel, cfg)[0].float().mean())
     occ_frac = float(occluded(o, d, md, accel, cfg).float().mean())
 
-    def calls(mode, v=None):
-        f, f_ref = ((nearest, nearest_ref) if mode == "nearest"
-                    else (occluded, occluded_ref))
+    def calls(mode, fs=(nearest, occluded)):
         if mode == "nearest":
-            return (lambda o, d, md: f(o, d, accel, cfg, variant=v),
-                    lambda o, d, md: f_ref(o, d, accel, cfg))
-        return (lambda o, d, md: f(o, d, md, accel, cfg, variant=v),
-                lambda o, d, md: f_ref(o, d, md, accel, cfg))
+            return (lambda o, d, md: fs[0](o, d, accel, cfg),
+                    lambda o, d, md: nearest_ref(o, d, accel, cfg))
+        return (lambda o, d, md: fs[1](o, d, md, accel, cfg),
+                lambda o, d, md: occluded_ref(o, d, md, accel, cfg))
 
     for mode in ("nearest", "occluded"):
         run, run_ref = calls(mode)
@@ -386,11 +415,10 @@ def compare_stream(kernel, name, inputs, accel, cfg, tag):
         stats[mode]["lane_utilisation"] = lane_utilisation(
             stats[mode].pop("ray_visits"))
         out[mode] = {
-            "variant": walk_variant(kernel, o.shape[0], mode == "occluded",
-                                    o.device),
+            "variant": picked_design(kernel, o.shape[0]),
             "ms": median_ms(run, inputs),
             **{f"kernel_ms_{v}": ms for v, ms in kernel_device_ms(
-                {v: calls(mode, v)[0] for v in WALK_VARIANTS[kernel]},
+                {v: calls(mode, fs)[0] for v, fs in designs.items()},
                 inputs, kernel).items()},
             "plain_ms": median_ms(run_ref, inputs),
             "max_abs_err": max_err if mode == "nearest" else 0.0,
@@ -400,7 +428,6 @@ def compare_stream(kernel, name, inputs, accel, cfg, tag):
         }
         m = out[mode]
         m["kernel_ms"] = m["kernel_ms_" + m["variant"]]
-    designs = WALK_VARIANTS[kernel]
     line = [f"[{tag}] {name}: R={o.shape[0]} hit {hit_frac:.4f} occluded "
             f"{occ_frac:.4f}; {'/'.join(designs)} exact on {len(inputs)} "
             "inputs"]
@@ -455,7 +482,11 @@ def phase_kernel(device, traversal, kernel, tag):
 
 def phase_render(tmp):
     from dpt_tpu_torch import cli
-    from dpt_tpu_torch.kernels.quad import launch_counts, reset_launch_counts
+    from dpt_tpu_torch.kernels.quad import (
+        design_counts,
+        launch_counts,
+        reset_launch_counts,
+    )
 
     png = os.path.join(tmp, "flagship.png")
     metrics = os.path.join(tmp, "flagship.jsonl")
@@ -467,7 +498,7 @@ def phase_render(tmp):
     reset_launch_counts()
     img = cli.main(argv)
     torch.cuda.synchronize()
-    counts = dict(launch_counts)
+    counts, designs = dict(launch_counts), dict(design_counts)
     require(img.is_cuda and tuple(img.shape) == (1024, 1024, 3),
             f"image {tuple(img.shape)} on {img.device}")
     require(bool(torch.isfinite(img).all()), "image has non-finite values")
@@ -477,11 +508,16 @@ def phase_render(tmp):
         require(f.read(8) == b"\x89PNG\r\n\x1a\n", "PNG magic missing")
     want = {"nearest": 16 * batches, "occluded": 16 * batches}
     require(counts == want, f"K1 launches {counts}, want {want}")
+    # The primary query walks all 1024² pixels; the 31 after it walk the
+    # lanes compaction keeps (BOUNCE_RAYS), in groups of four lanes.
+    want = {"lane": 0, "group": 31 * batches}
+    want[picked_design("quad_traverse", 1024 * 1024)] += batches
+    require(designs == want, f"K1 designs {designs}, want {want}")
     with open(metrics) as f:
         rows = [json.loads(line) for line in f if line.strip()]
     require(len(rows) == batches, f"{len(rows)} metrics rows")
     print("[5 render] sylveon512 1024^2 x4 batches, 65,024 tris, 4 bounces: "
-          f"K1 launches {counts}; batch_ms "
+          f"K1 launches {counts}, by design {designs}; batch_ms "
           + ", ".join(f"{r['batch_ms']:.1f}" for r in rows)
           + "; gross rays/s "
           + ", ".join(f"{r['rays_per_s']:.4g}" for r in rows), flush=True)

@@ -68,12 +68,12 @@ extern "C" int dpt_intersect_nearest(const float* origin,
 }
 
 // Registers and local memory per thread, and resident blocks per SM.  The
-// kernel has one mode, nearest, and one variant: `occluded` and `group`
-// must be 0 (the walks' attribute functions take the same arguments).
-extern "C" int dpt_intersect_nearest_attrs(int occluded, int group,
-                                           int* num_regs, int* local_bytes,
+// kernel has one mode, nearest: `occluded` must be 0 (the walks' attribute
+// functions take the same arguments).
+extern "C" int dpt_intersect_nearest_attrs(int occluded, int* num_regs,
+                                           int* local_bytes,
                                            int* blocks_per_sm) {
-  if (occluded || group) return static_cast<int>(cudaErrorInvalidValue);
+  if (occluded) return static_cast<int>(cudaErrorInvalidValue);
   return dpt::func_attrs(
       reinterpret_cast<const void*>(intersect_nearest_kernel), num_regs,
       local_bytes, blocks_per_sm);

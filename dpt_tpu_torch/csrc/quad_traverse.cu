@@ -30,11 +30,11 @@
 // pushed and popped.  Two layouts of the walk: one ray per lane, with a
 // per-lane stack of dpt::kStack entries (the wrapper checks
 // 3*max_depth+2 <= kStack); and one ray per group of four lanes, for
-// streams no larger than one wave of resident lanes (the render's queries
-// after the primary), where one ray per lane leaves the card part idle and
-// a launch lasts as long as its longest walk: lane g tests child g's slab
-// and slots 2g, 2g+1 of each leaf row, so a visit's latency is a quarter of
-// a lane's.  The group agrees on every branch (ballots and shuffles among
+// streams of at most GROUP_MAX_RAYS rays (kernels/quad.py; the render's
+// queries after the primary), where one ray per lane leaves the card part
+// idle and a launch lasts as long as its longest walk: lane g tests child
+// g's slab and slots 2g, 2g+1 of each leaf row, so a visit's latency is a
+// quarter of a lane's.  The group agrees on every branch (ballots and shuffles among
 // its four lanes) and keeps the walk state, stack included, in each lane.
 // Refilling a lane from a counter when its walk ends was tried and lost
 // (PERF.md, PR 4).
@@ -219,57 +219,70 @@ __global__ void __launch_bounds__(kBlock) quad_traverse_kernel(
   }
 }
 
-template <bool kOccluded>
-const void* kernel_of(int group) {
-  if (group) {
-    return reinterpret_cast<const void*>(quad_traverse_kernel<kOccluded, 4>);
+template <int G>
+int launch(const float* origin, const float* direction, const float* max_dist,
+           const float* nodes, const float* tris, int n_rays, int occluded,
+           float* out_t, int* out_tri, void* stream) {
+  if (n_rays <= 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid(static_cast<unsigned>(
+      (static_cast<long long>(n_rays) * G + kBlock - 1) / kBlock));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float4* n4 = reinterpret_cast<const float4*>(nodes);
+  const float4* t4 = reinterpret_cast<const float4*>(tris);
+  if (occluded) {
+    quad_traverse_kernel<true, G><<<grid, kBlock, 0, s>>>(
+        origin, direction, max_dist, n4, t4, n_rays, out_t, out_tri);
+  } else {
+    quad_traverse_kernel<false, G><<<grid, kBlock, 0, s>>>(
+        origin, direction, max_dist, n4, t4, n_rays, out_t, out_tri);
   }
-  return reinterpret_cast<const void*>(quad_traverse_kernel<kOccluded, 1>);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int G>
+int attrs(int occluded, int* num_regs, int* local_bytes, int* blocks_per_sm) {
+  const void* fn =
+      occluded ? reinterpret_cast<const void*>(quad_traverse_kernel<true, G>)
+               : reinterpret_cast<const void*>(quad_traverse_kernel<false, G>);
+  return dpt::func_attrs(fn, num_regs, local_bytes, blocks_per_sm);
 }
 
 }  // namespace
 
-// Launch on `stream`.  Nearest mode writes out_t (min t, 1e30 on a miss)
-// and out_tri (triangle id, 0 on a miss), and reads no max_dist; occluded
-// mode reads max_dist and writes out_tri (0/1) only.  `group` 0 walks one
-// ray per lane, 1 one ray per group of four lanes.  Returns
-// cudaGetLastError() after the launch.
+// Launch on `stream`, one ray per lane.  Nearest mode writes out_t (min t,
+// 1e30 on a miss) and out_tri (triangle id, 0 on a miss), and reads no
+// max_dist; occluded mode reads max_dist and writes out_tri (0/1) only.
+// Returns cudaGetLastError() after the launch.
 extern "C" int dpt_quad_traverse(const float* origin, const float* direction,
                                  const float* max_dist, const float* nodes,
                                  const float* tris, int n_rays, int occluded,
-                                 float* out_t, int* out_tri, void* stream,
-                                 int group) {
-  if (n_rays <= 0) return static_cast<int>(cudaSuccess);
-  const int lanes = group ? 4 : 1;
-  const dim3 grid(static_cast<unsigned>(
-      (static_cast<long long>(n_rays) * lanes + kBlock - 1) / kBlock));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float4* n4 = reinterpret_cast<const float4*>(nodes);
-  const float4* t4 = reinterpret_cast<const float4*>(tris);
-#define DPT_LAUNCH(OCC, G)                                               \
-  quad_traverse_kernel<OCC, G><<<grid, kBlock, 0, s>>>(                  \
-      origin, direction, max_dist, n4, t4, n_rays, out_t, out_tri)
-  if (occluded && group) {
-    DPT_LAUNCH(true, 4);
-  } else if (occluded) {
-    DPT_LAUNCH(true, 1);
-  } else if (group) {
-    DPT_LAUNCH(false, 4);
-  } else {
-    DPT_LAUNCH(false, 1);
-  }
-#undef DPT_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+                                 float* out_t, int* out_tri, void* stream) {
+  return launch<1>(origin, direction, max_dist, nodes, tris, n_rays, occluded,
+                   out_t, out_tri, stream);
+}
+
+// The same, one ray per group of four lanes.
+extern "C" int dpt_quad_traverse_group(const float* origin,
+                                       const float* direction,
+                                       const float* max_dist,
+                                       const float* nodes, const float* tris,
+                                       int n_rays, int occluded, float* out_t,
+                                       int* out_tri, void* stream) {
+  return launch<4>(origin, direction, max_dist, nodes, tris, n_rays, occluded,
+                   out_t, out_tri, stream);
 }
 
 // Registers and local memory (stack + spills) per thread, and resident
-// blocks per SM, of each mode and variant.
-extern "C" int dpt_quad_traverse_attrs(int occluded, int group,
-                                       int* num_regs, int* local_bytes,
-                                       int* blocks_per_sm) {
-  return dpt::func_attrs(occluded ? kernel_of<true>(group)
-                                  : kernel_of<false>(group),
-                         num_regs, local_bytes, blocks_per_sm);
+// blocks per SM, of each mode, one ray per lane and per group.
+extern "C" int dpt_quad_traverse_attrs(int occluded, int* num_regs,
+                                       int* local_bytes, int* blocks_per_sm) {
+  return attrs<1>(occluded, num_regs, local_bytes, blocks_per_sm);
+}
+
+extern "C" int dpt_quad_traverse_group_attrs(int occluded, int* num_regs,
+                                             int* local_bytes,
+                                             int* blocks_per_sm) {
+  return attrs<4>(occluded, num_regs, local_bytes, blocks_per_sm);
 }
 
 extern "C" const char* dpt_cuda_error_string(int err) {

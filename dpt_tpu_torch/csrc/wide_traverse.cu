@@ -136,14 +136,11 @@ __global__ void __launch_bounds__(kBlock) wide_traverse_kernel(
 
 }  // namespace
 
-// Launch on `stream`, with the arguments of dpt_quad_traverse; K2 walks one
-// ray per lane only, so `group` must be 0.
+// Launch on `stream`, with the arguments of dpt_quad_traverse.
 extern "C" int dpt_wide_traverse(const float* origin, const float* direction,
                                  const float* max_dist, const float* nodes,
                                  const float* tris, int n_rays, int occluded,
-                                 float* out_t, int* out_tri, void* stream,
-                                 int group) {
-  if (group) return static_cast<int>(cudaErrorInvalidValue);
+                                 float* out_t, int* out_tri, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaSuccess);
   const dim3 grid((n_rays + kBlock - 1) / kBlock);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -160,11 +157,9 @@ extern "C" int dpt_wide_traverse(const float* origin, const float* direction,
 }
 
 // Registers and local memory (stack + spills) per thread, and resident
-// blocks per SM, of each mode (`group` must be 0).
-extern "C" int dpt_wide_traverse_attrs(int occluded, int group,
-                                       int* num_regs, int* local_bytes,
-                                       int* blocks_per_sm) {
-  if (group) return static_cast<int>(cudaErrorInvalidValue);
+// blocks per SM, of each mode.
+extern "C" int dpt_wide_traverse_attrs(int occluded, int* num_regs,
+                                       int* local_bytes, int* blocks_per_sm) {
   const void* fn =
       occluded ? reinterpret_cast<const void*>(wide_traverse_kernel<true>)
                : reinterpret_cast<const void*>(wide_traverse_kernel<false>);

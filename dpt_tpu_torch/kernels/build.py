@@ -7,8 +7,8 @@ library goes to `dpt_tpu_torch/_build/` under a name keyed by a hash of the
 sources and flags, so an edited source is never served a stale build.
 Nothing here runs at import: the package is also imported where there is
 no `nvcc`, and a build happens only when a CUDA tensor reaches a kernel
-wrapper.  `launch_walk` calls a BVH walk kernel (K1, K2) through its C
-interface, `launch_intersect` the brute-force search (K3).
+wrapper.  `launch_walk` calls a BVH walk kernel (K1 in either design,
+K2) through its C interface, `launch_intersect` the brute-force search (K3).
 
 `-fmad=false` keeps every multiply and add separately rounded, so a kernel
 and its plain PyTorch version (separate elementwise ops) agree exactly on
@@ -36,16 +36,12 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 
-# The BVH walks, each exported by csrc/<name>.cu as `dpt_<name>` (the launch,
-# same signature for both, `launch_walk`) and `dpt_<name>_attrs`:
-# K1 (pallas_quad) and K2 (pallas_wide).
-WALKS = ("quad_traverse", "wide_traverse")
-# Their designs: one ray per lane, and for K1 one ray per group of four
-# lanes (a child's slab and two leaf slots each).
-WALK_VARIANTS = {"quad_traverse": ("lane", "group"),
-                 "wide_traverse": ("lane",)}
-# Threads per block of every kernel (dpt::kBlock, csrc/traverse_common.cuh).
-BLOCK = 128
+# The BVH walks, each exported as `dpt_<name>` (the launch, same signature
+# for all, `launch_walk`) and `dpt_<name>_attrs`: K1 (pallas_quad,
+# csrc/quad_traverse.cu) one ray per lane and one ray per group of four
+# lanes (a child's slab and two leaf slots each), and K2 (pallas_wide,
+# csrc/wide_traverse.cu).
+WALKS = ("quad_traverse", "quad_traverse_group", "wide_traverse")
 # The brute-force search K3 (pallas_intersect), exported by
 # csrc/intersect_nearest.cu as `dpt_intersect_nearest` (rays, table, R,
 # n_rows, eps: `launch_intersect`) and `dpt_intersect_nearest_attrs`.
@@ -77,13 +73,13 @@ def find_nvcc() -> str:
         " the CUDA kernels cannot be built")
 
 
-def _sources(csrc=CSRC):
-    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def library_path(csrc=CSRC) -> pathlib.Path:
+def library_path() -> pathlib.Path:
     h = hashlib.sha256()
-    for p in _sources(csrc):
+    for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -102,20 +98,18 @@ def _run(cmds):
             raise RuntimeError(f"nvcc failed ({rc}): {' '.join(c)}\n{text}")
 
 
-def build(csrc=CSRC) -> pathlib.Path:
-    """Compile the kernel sources in `csrc` (the package's own by default)
-    into the keyed library unless it exists: one nvcc per source, all
-    started together, then one link."""
+def build() -> pathlib.Path:
+    """Compile csrc/*.cu into the keyed library unless it exists: one nvcc
+    per source, all started together, then one link."""
     global build_seconds
-    csrc = pathlib.Path(csrc)
-    out = library_path(csrc)
+    out = library_path()
     build_seconds = 0.0
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     tag = f"{out.stem}.{os.getpid()}"
-    srcs = [p for p in _sources(csrc) if p.suffix == ".cu"]
+    srcs = [p for p in _sources() if p.suffix == ".cu"]
     objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in srcs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
@@ -133,38 +127,34 @@ def build(csrc=CSRC) -> pathlib.Path:
     return out
 
 
-def open_library(path) -> ctypes.CDLL:
-    """A built kernel library, with the argtypes of its C interface
-    declared."""
-    lib = ctypes.CDLL(str(path))
+def load_library() -> ctypes.CDLL:
+    """The built kernel library, with argtypes declared (built on first
+    call)."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
     for name in WALKS:
         launch = getattr(lib, f"dpt_{name}")
-        launch.argtypes = [p, p, p, p, p, i, i, p, p, p, i]
+        launch.argtypes = [p, p, p, p, p, i, i, p, p, p]
         launch.restype = i
     launch = getattr(lib, f"dpt_{INTERSECT}")
     launch.argtypes = [p, p, p, i, i, ctypes.c_float, p, p, p]
     launch.restype = i
     for name in KERNEL_MODES:
         attrs = getattr(lib, f"dpt_{name}_attrs")
-        attrs.argtypes = [i, i, *[ctypes.POINTER(i)] * 3]
+        attrs.argtypes = [i, *[ctypes.POINTER(i)] * 3]
         attrs.restype = i
     lib.dpt_cuda_error_string.argtypes = [i]
     lib.dpt_cuda_error_string.restype = ctypes.c_char_p
+    _lib = lib
     return lib
-
-
-def load_library() -> ctypes.CDLL:
-    """The package's kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        _lib = open_library(build())
-    return _lib
 
 
 def kernel_attributes(kernel: str, occluded: bool) -> dict:
     """Registers and local bytes per thread, and resident blocks per SM, of
-    one kernel of KERNEL_MODES in one mode (one ray per lane)."""
+    one kernel of KERNEL_MODES in one mode."""
     modes = KERNEL_MODES.get(kernel)
     if modes is None:
         raise ValueError(f"unknown kernel {kernel!r}; known: "
@@ -174,51 +164,11 @@ def kernel_attributes(kernel: str, occluded: bool) -> dict:
     lib = load_library()
     vals = [ctypes.c_int(0) for _ in range(3)]
     err = getattr(lib, f"dpt_{kernel}_attrs")(
-        int(occluded), 0, *(ctypes.byref(v) for v in vals))
+        int(occluded), *(ctypes.byref(v) for v in vals))
     if err != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
     return dict(zip(("num_regs", "local_bytes", "blocks_per_sm"),
                     (v.value for v in vals)))
-
-
-_resident = {}
-
-
-def resident_lanes(kernel: str, occluded: bool, device=None) -> int:
-    """Threads of the one-ray-per-lane walk that the card holds at once:
-    resident blocks per SM x BLOCK x SMs (cached per device)."""
-    dev = torch.cuda.current_device() if device is None else (
-        torch.device(device).index or 0)
-    key = (kernel, occluded, dev)
-    if key not in _resident:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        _resident[key] = kernel_attributes(kernel, occluded)[
-            "blocks_per_sm"] * BLOCK * sms
-    return _resident[key]
-
-
-def walk_variant(kernel: str, n_rays: int, occluded: bool, device=None,
-                 variant=None) -> str:
-    """The design a walk launch of `n_rays` takes: for K1, "group" when the
-    stream is no larger than one wave of resident lanes, where one ray per
-    lane would leave the card part idle and the launch lasts as long as its
-    longest walk, else "lane"; K2 has "lane" only.  A `variant` of the
-    kernel's WALK_VARIANTS forces one."""
-    if variant is not None:
-        return check_variant(kernel, variant)
-    if len(WALK_VARIANTS[kernel]) == 1:
-        return "lane"
-    return ("group" if n_rays <= resident_lanes(kernel, occluded, device)
-            else "lane")
-
-
-def check_variant(kernel: str, variant):
-    """`variant` if it is None or one of the kernel's WALK_VARIANTS; else
-    ValueError."""
-    if variant is not None and variant not in WALK_VARIANTS[kernel]:
-        raise ValueError(f"{kernel} walk variant {variant!r}; known: "
-                         f"{WALK_VARIANTS[kernel]}")
-    return variant
 
 
 def check_rays(origin, direction, max_dist=None):
@@ -240,14 +190,12 @@ def check_rays(origin, direction, max_dist=None):
 
 
 def launch_walk(kernel, origin, direction, max_dist, nodes, tris,
-                occluded: bool, variant: str = "lane", lib=None):
-    """Launch one walk kernel of WALKS in one of its WALK_VARIANTS on the
-    current stream: (t [R] f32, tri [R] int32) in nearest mode, (None,
-    occluded [R] int32) in occluded mode, where `max_dist` is read and no t
-    is written.  The caller has checked the rays and the tables; this
-    checks the tables' alignment and the launch's error.  `lib` is the
-    package's library unless another build of the sources is given
-    (scripts/torch_walk_ablation.py)."""
+                occluded: bool):
+    """Launch one walk kernel of WALKS on the current stream: (t [R] f32,
+    tri [R] int32) in nearest mode, (None, occluded [R] int32) in occluded
+    mode, where `max_dist` is read and no t is written.  The caller has
+    checked the rays and the tables; this checks the tables' alignment and
+    the launch's error."""
     R = origin.shape[0]
     dev = origin.device
     out_i = torch.empty((R,), dtype=torch.int32, device=dev)
@@ -261,7 +209,7 @@ def launch_walk(kernel, origin, direction, max_dist, nodes, tris,
     for x in tables:
         if x.data_ptr() % 16:
             raise ValueError("accel tables must be 16-byte aligned")
-    lib = lib or load_library()
+    lib = load_library()
 
     def ptr(x):
         return ctypes.c_void_p(None if x is None else x.data_ptr())
@@ -270,7 +218,6 @@ def launch_walk(kernel, origin, direction, max_dist, nodes, tris,
         *map(ptr, (*rays, md, *tables)), ctypes.c_int(R),
         ctypes.c_int(int(occluded)), ptr(out_t), ptr(out_i),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
-        ctypes.c_int(int(variant == "group")),
     )
     _check_launch(lib, kernel, err)
     return out_t, out_i

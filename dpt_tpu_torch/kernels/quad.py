@@ -13,11 +13,10 @@ Counterpart of `dpt_tpu/kernels/pallas_quad.py`.
   - `refit_quad` refits the packed tables to moved vertices with torch
     gathers and min / max, for vertex optimisation.
   - `quad_nearest` / `quad_occluded` launch the hand-written CUDA kernel
-    (csrc/quad_traverse.cu: one ray per lane, or per group of four lanes
-    for a stream of at most one wave of resident lanes, as
-    `build.walk_variant` picks) for CUDA tensors and run the plain PyTorch
-    walk (`quad_nearest_reference` / `quad_occluded_reference`) for CPU
-    tensors.
+    (csrc/quad_traverse.cu: one ray per group of four lanes for a stream
+    of at most GROUP_MAX_RAYS rays, else one ray per lane) for CUDA tensors
+    and run the plain PyTorch walk (`quad_nearest_reference` /
+    `quad_occluded_reference`) for CPU tensors.
     There is no fallback between the two: a CUDA tensor launches the kernel
     or raises.
 
@@ -46,15 +45,26 @@ KERNEL_STACK = 64
 # :627) for both the parallel test and t > eps; cfg.eps is not used here.
 _EPS = 1e-6
 _TINY = 1e-20
+# The largest stream the kernel walks with one ray per group of four lanes;
+# a larger one takes one ray per lane.  Timed on an H100 (132 SMs) over
+# the flagship's tables (scripts/torch_walk_ablation.py): groups are ahead
+# on every stream of up to 2**18 rays in both modes, incoherent and
+# primary, and behind on incoherent streams from 3 * 2**17 rays on.
+GROUP_MAX_RAYS = 1 << 18
+# The kernel's C export of each design (kernels/build.py WALKS).
+_EXPORTS = {"lane": "quad_traverse", "group": "quad_traverse_group"}
 
-# Kernel launches per mode.  Each wrapper adds one where it launches the
-# CUDA kernel and nowhere else; the plain walk does not count.
+# Kernel launches per mode, and the same launches per design.  Each wrapper
+# adds one where it launches the CUDA kernel and nowhere else; the plain
+# walk does not count.
 launch_counts = {"nearest": 0, "occluded": 0}
+design_counts = {"lane": 0, "group": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, design_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 @dataclasses.dataclass
@@ -533,35 +543,37 @@ def _check_inputs(origin, direction, max_dist, accel: QuadAccel):
         raise ValueError("accel.tris must have shape [L, 128]")
 
 
+def walk_design(n_rays: int) -> str:
+    """The design K1 walks a stream of `n_rays` in: "group" (one ray per
+    group of four lanes) up to GROUP_MAX_RAYS rays, else "lane"."""
+    return "group" if n_rays <= GROUP_MAX_RAYS else "lane"
+
+
 def _launch(origin, direction, max_dist, accel: QuadAccel, occluded: bool,
-            variant=None):
+            design=None):
     """Launch K1 on the current stream: (t [R] f32 or None, tri/occ [R]
-    int32), in the design build.walk_variant picks or `variant` forces."""
-    from dpt_tpu_torch.kernels.build import launch_walk, walk_variant
+    int32), in walk_design's pick unless `design` ("lane" or "group")
+    forces one."""
+    from dpt_tpu_torch.kernels.build import launch_walk
 
     R = origin.shape[0]
-    variant = walk_variant("quad_traverse", R, occluded, origin.device,
-                           variant)
-    out = launch_walk("quad_traverse", origin, direction, max_dist,
-                      accel.nodes_flat, accel.tris, occluded, variant)
+    design = design or walk_design(R)
+    out = launch_walk(_EXPORTS[design], origin, direction, max_dist,
+                      accel.nodes_flat, accel.tris, occluded)
     if R:
         launch_counts["occluded" if occluded else "nearest"] += 1
+        design_counts[design] += 1
     return out
 
 
-def _dispatch(origin, direction, max_dist, accel, cfg, occluded: bool,
-              variant=None):
+def _dispatch(origin, direction, max_dist, accel, cfg, occluded: bool):
     """(t, tri) in nearest mode, (t or None, occluded) in occluded mode.  In
     nearest mode `max_dist` is None: the kernel never reads one, and the
-    plain walk gets zeros.  `variant` forces a kernel design (the plain walk
-    has one)."""
-    from dpt_tpu_torch.kernels.build import check_variant
-
+    plain walk gets zeros."""
     check_stack(accel, cfg)
     _check_inputs(origin, direction, max_dist, accel)
-    check_variant("quad_traverse", variant)
     if origin.is_cuda:
-        return _launch(origin, direction, max_dist, accel, occluded, variant)
+        return _launch(origin, direction, max_dist, accel, occluded)
     if origin.device.type != "cpu":
         raise ValueError(f"quad walk: unsupported device {origin.device}")
     if max_dist is None:
@@ -571,20 +583,16 @@ def _dispatch(origin, direction, max_dist, accel, cfg, occluded: bool,
                            cfg.bvh_stack_depth)
 
 
-def quad_nearest(origin, direction, accel: QuadAccel, cfg, *, variant=None):
+def quad_nearest(origin, direction, accel: QuadAccel, cfg):
     """Nearest hit via the 4-wide walk: (hit [R] bool, t [R] f32, tri [R]
-    int32, 0 on a miss).  CUDA tensors launch the kernel, in the design the
-    stream's size picks (build.walk_variant) unless `variant` ("lane" or
-    "group") forces one; CPU tensors take the plain walk."""
-    t, tri = _dispatch(origin, direction, None, accel, cfg, False, variant)
+    int32, 0 on a miss).  CUDA tensors launch the kernel; CPU tensors take
+    the plain walk."""
+    t, tri = _dispatch(origin, direction, None, accel, cfg, False)
     return t < T_MAX, t, tri
 
 
-def quad_occluded(origin, direction, max_dist, accel: QuadAccel, cfg, *,
-                  variant=None):
+def quad_occluded(origin, direction, max_dist, accel: QuadAccel, cfg):
     """Any-hit query via the 4-wide walk: occluded [R] bool (a hit with
-    t < max_dist; lanes with max_dist <= 0 are never occluded).  `variant`
-    as for quad_nearest."""
-    _, occ = _dispatch(origin, direction, max_dist, accel, cfg, True,
-                       variant)
+    t < max_dist; lanes with max_dist <= 0 are never occluded)."""
+    _, occ = _dispatch(origin, direction, max_dist, accel, cfg, True)
     return occ.bool()

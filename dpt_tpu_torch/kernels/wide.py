@@ -364,35 +364,26 @@ def _check_inputs(origin, direction, max_dist, accel: WideAccel):
         raise ValueError("accel.nodes must hold n_internal records")
 
 
-def _launch(origin, direction, max_dist, accel: WideAccel, occluded: bool,
-            variant=None):
+def _launch(origin, direction, max_dist, accel: WideAccel, occluded: bool):
     """Launch K2 on the current stream: (t [R] f32 or None, tri/occ [R]
-    int32), in the design build.walk_variant picks or `variant` forces."""
-    from dpt_tpu_torch.kernels.build import launch_walk, walk_variant
+    int32)."""
+    from dpt_tpu_torch.kernels.build import launch_walk
 
-    R = origin.shape[0]
-    variant = walk_variant("wide_traverse", R, occluded, origin.device,
-                           variant)
     out = launch_walk("wide_traverse", origin, direction, max_dist,
-                      accel.nodes, accel.tris, occluded, variant)
-    if R:
+                      accel.nodes, accel.tris, occluded)
+    if origin.shape[0]:
         launch_counts["occluded" if occluded else "nearest"] += 1
     return out
 
 
-def _dispatch(origin, direction, max_dist, accel, cfg, occluded: bool,
-              variant=None):
+def _dispatch(origin, direction, max_dist, accel, cfg, occluded: bool):
     """(t, tri) in nearest mode, (t or None, occluded) in occluded mode.  In
     nearest mode `max_dist` is None: the kernel never reads one, and the
-    plain walk gets zeros.  `variant` forces a kernel design (the plain walk
-    has one)."""
-    from dpt_tpu_torch.kernels.build import check_variant
-
+    plain walk gets zeros."""
     check_stack(accel, cfg)
     _check_inputs(origin, direction, max_dist, accel)
-    check_variant("wide_traverse", variant)
     if origin.is_cuda:
-        return _launch(origin, direction, max_dist, accel, occluded, variant)
+        return _launch(origin, direction, max_dist, accel, occluded)
     if origin.device.type != "cpu":
         raise ValueError(f"wide walk: unsupported device {origin.device}")
     if max_dist is None:
@@ -402,20 +393,16 @@ def _dispatch(origin, direction, max_dist, accel, cfg, occluded: bool,
                            cfg.bvh_stack_depth)
 
 
-def wide_nearest(origin, direction, accel: WideAccel, cfg, *, variant=None):
+def wide_nearest(origin, direction, accel: WideAccel, cfg):
     """Nearest hit via the paired-children walk: (hit [R] bool, t [R] f32,
-    tri [R] int32, 0 on a miss).  CUDA tensors launch the kernel, one ray
-    per lane (`variant` may name that design, "lane"); CPU tensors take the
-    plain walk."""
-    t, tri = _dispatch(origin, direction, None, accel, cfg, False, variant)
+    tri [R] int32, 0 on a miss).  CUDA tensors launch the kernel; CPU
+    tensors take the plain walk."""
+    t, tri = _dispatch(origin, direction, None, accel, cfg, False)
     return t < T_MAX, t, tri
 
 
-def wide_occluded(origin, direction, max_dist, accel: WideAccel, cfg, *,
-                  variant=None):
+def wide_occluded(origin, direction, max_dist, accel: WideAccel, cfg):
     """Any-hit query via the paired-children walk: occluded [R] bool (a hit
-    with t < max_dist; lanes with max_dist <= 0 are never occluded).
-    `variant` as for wide_nearest."""
-    _, occ = _dispatch(origin, direction, max_dist, accel, cfg, True,
-                       variant)
+    with t < max_dist; lanes with max_dist <= 0 are never occluded)."""
+    _, occ = _dispatch(origin, direction, max_dist, accel, cfg, True)
     return occ.bool()

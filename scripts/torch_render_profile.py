@@ -19,12 +19,10 @@ Then one more serial batch of each runs under `torch.profiler`: device
 time by kernel family (scripts/torch_profile_step.py's families), kernels
 run, launches made, and the device busy share of the batch.  For the
 flagship it also lists every K1 launch of that batch in order (mode, rays,
-kernel ms, the design `build.walk_variant` picked) and splits K1's device
-time between launches of more rays than one wave of resident lanes
-(`build.resident_lanes`: resident blocks per SM x 128 x SMs of the
-one-ray-per-lane kernel in each mode) and the others.  `--variant` forces
-K1's design in the profiled batch (auto: the wrapper's pick).  `--pairs 0`
-skips the pairs.
+kernel ms, design) and splits K1's device time between its two designs
+(one ray per lane above `kernels/quad.py` GROUP_MAX_RAYS rays, one per
+group of four lanes at or below).  `--variant` forces K1's design in the
+profiled batch (auto: the wrapper's pick).  `--pairs 0` skips the pairs.
 Prints the card's `nvidia-smi` name and power limit, one line per run, and
 one JSON line with every batch_ms, the wall ms per batch of each run
 (dispatch of the first batch to the last batch complete, over the batch
@@ -91,11 +89,9 @@ def pipelined(scene, camera, cfg, accel, n):
 
 def k1_launches(prof, sizes):
     """Every K1 launch of a profiled run, in order: the wrapper's (mode,
-    rays) beside the kernel's device ms, and K1's device ms split by launch
-    size against one wave of resident lanes of its mode."""
+    rays, design) beside the kernel's device ms, and K1's device ms and
+    launches per design."""
     from torch.autograd import DeviceType
-
-    from dpt_tpu_torch.kernels import build
 
     evs = sorted((e for e in prof.events()
                   if e.device_type == DeviceType.CUDA
@@ -104,22 +100,18 @@ def k1_launches(prof, sizes):
     if len(evs) != len(sizes):
         raise RuntimeError(f"{len(sizes)} K1 launches, the profiler saw "
                            f"{len(evs)}")
-    wave = {m: build.resident_lanes("quad_traverse", m == "occluded")
-            for m in ("nearest", "occluded")}
-    rows, split = [], {"above_one_wave_ms": 0.0, "below_one_wave_ms": 0.0,
-                       "above_one_wave_launches": 0}
-    for (mode, n, variant), e in zip(sizes, evs):
+    rows = []
+    split = {f"{d}_{k}": 0 for d in ("lane", "group")
+             for k in ("ms", "launches")}
+    for (mode, n, design), e in zip(sizes, evs):
         if ("<true" in e.name) != (mode == "occluded"):
             raise RuntimeError(f"launch order differs: {mode} vs {e.name}")
         ms = e.time_range.elapsed_us() / 1e3
         rows.append({"mode": mode, "rays": n, "kernel_ms": ms,
-                     "variant": build.walk_variant(
-                         "quad_traverse", n, mode == "occluded",
-                         variant=variant)})
-        above = n > wave[mode]
-        split["above_one_wave_ms" if above else "below_one_wave_ms"] += ms
-        split["above_one_wave_launches"] += int(above)
-    return {"resident_lanes": wave, "launches": rows, **split}
+                     "design": design})
+        split[f"{design}_ms"] += ms
+        split[f"{design}_launches"] += 1
+    return {"launches": rows, **split}
 
 
 def profile_batch(scene, camera, cfg, accel, variant=None):
@@ -134,11 +126,11 @@ def profile_batch(scene, camera, cfg, accel, variant=None):
     sizes = []
     launch = quad._launch
 
-    def spy(origin, direction, max_dist, accel, occluded, v=None):
-        sizes.append(("occluded" if occluded else "nearest",
-                      int(origin.shape[0]), variant or v))
-        return launch(origin, direction, max_dist, accel, occluded,
-                      variant or v)
+    def spy(origin, direction, max_dist, accel, occluded):
+        n = int(origin.shape[0])
+        design = variant or quad.walk_design(n)
+        sizes.append(("occluded" if occluded else "nearest", n, design))
+        return launch(origin, direction, max_dist, accel, occluded, design)
 
     quad._launch = spy
     try:

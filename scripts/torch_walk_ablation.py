@@ -1,40 +1,45 @@
-"""Kernel times of the BVH walks K1 and K2 across builds of their sources.
+"""Kernel times of the BVH walks K1 and K2 across builds, designs and streams.
 
     python scripts/torch_walk_ablation.py [--variant NAME=CSRC_DIR ...]
-        [--groups NAME,...] [--rounds 2] [--reps 2]
+        [--kernels quad_traverse,wide_traverse]
+        [--streams primary:1024,incoherent:262144,incoherent:126621]
+        [--inputs 5] [--rounds 2] [--reps 2]
 
-Each `--variant` is a directory of kernel sources (`csrc/*.cu`, `*.cuh`),
-built by `dpt_tpu_torch/kernels/build.py` into a library of its own; with
-none, the package's own `dpt_tpu_torch/csrc` is timed as "tree".  Every
-variant is called through `build.launch_walk`, whose C interface is the
-package's: a build of older sources whose launch lacks the trailing group
-argument ignores it (x86-64 passes it last, on the stack, and the caller
-pops it); a launch with other trailing arguments cannot be timed here.  Each variant runs one ray per lane
-("lane"); those named in `--groups` also run K1 with one ray per group of
-four lanes ("group", `build.WALK_VARIANTS`).
+Each `--variant` is a directory of kernel sources (`*.cu`, `*.cuh`), built
+here by one `nvcc` over its `.cu` files with `kernels/build.py`'s flags
+into a library of its own under `dpt_tpu_torch/_build/ablation/`; with
+none, the package's own `dpt_tpu_torch/csrc` is timed as "tree".  Each
+library is bound by ctypes to its own C interface: the launches
+`dpt_quad_traverse` and `dpt_wide_traverse` (the same arguments in every
+build since the port began), and K1's one-ray-per-group-of-four-lanes
+launch `dpt_quad_traverse_group` where the build exports it.  Every build
+runs one ray per lane ("lane"), and K1 also one ray per group ("group")
+where it can.
 
-The streams are `chip_smoke.py`'s phases 3-4: the flagship tables (65,024
-triangles, SAH leaf 8) packed 4-wide (K1) and paired-children (K2); the
-1024² primary stream and 2**18 incoherent, coherence-sorted rays, 5 inputs
-of each, and 5 inputs of 126,621 incoherent rays, the size of the
-flagship render's queries after the primary (chip_smoke.BOUNCE_RAYS).  For
-each variant, design, kernel, stream and mode the script first checks that
-the kernel's results equal the plain walk's exactly (t and tri, or
-occluded), then takes the kernel's mean device time over the 5 inputs x
-`--reps` from `torch.profiler`: the kernel alone, without the wrapper.
-The variants run in turns, the order reversed every round (a b, b a, ...),
-so that drift of the card falls on all of them.  Also prints each stream's
-lane utilisation of a one-thread-per-ray warp (mean records visited over
-the mean of each 32 consecutive rays' maximum, from the plain walk) and
-its bound (chip_smoke.bound).  Prints the card's `nvidia-smi` name and
-power limit, one line per measurement, and one JSON line.  Needs a CUDA
-card.
+The streams run over `chip_smoke.py`'s flagship tables (65,024
+triangles, SAH leaf 8) packed 4-wide (K1) and paired-children (K2):
+`primary:RES` is the primary rays of a RES x RES image of the flagship
+camera, `incoherent:N` is N rays leaving the mesh in uniform directions,
+coherence-sorted (chip_smoke.incoherent_rays; 126,621 is the size of the
+flagship render's queries after the primary, chip_smoke.BOUNCE_RAYS),
+`--inputs` of each.  For each build, design, kernel, stream and mode the
+script first checks that the kernel's results equal the plain walk's
+exactly (t and tri, or occluded), then takes the kernel's mean device time
+over the inputs x `--reps` from `torch.profiler`: the kernel alone, without
+the wrapper.  The builds and designs run in turns, the order reversed every
+round (a b, b a, ...), so that drift of the card falls on all of them.
+Also prints each stream's lane utilisation of a one-thread-per-ray warp
+(mean records visited over the mean of each 32 consecutive rays' maximum,
+from the plain walk) and its bound (chip_smoke.bound).  Prints the card's
+`nvidia-smi` name and power limit, one line per measurement, and one JSON
+line.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import pathlib
 import re
@@ -52,35 +57,92 @@ from dpt_tpu_torch.kernels import build  # noqa: E402
 
 KERNELS = {"quad_traverse": "quad", "wide_traverse": "pallas"}
 MODES = ("nearest", "occluded")
+# design -> the export of each kernel that walks in it
+EXPORTS = {"lane": {"quad_traverse": "dpt_quad_traverse",
+                    "wide_traverse": "dpt_wide_traverse"},
+           "group": {"quad_traverse": "dpt_quad_traverse_group"}}
 
 
-def attributes(lib, csrc, kernel):
-    """Registers / local bytes / resident blocks per SM of both modes and
-    designs, from builds whose attribute export takes the design argument
-    (older ones are not asked: their exports take other arguments)."""
-    if "int occluded, int group" not in (csrc / f"{kernel}.cu").read_text():
+def build_library(csrc: pathlib.Path) -> ctypes.CDLL:
+    """Compile every .cu of `csrc` into one library keyed by the sources'
+    hash and bind its walk launches."""
+    srcs = sorted(csrc.glob("*.cu"))
+    h = hashlib.sha256()
+    for p in srcs + sorted(csrc.glob("*.cuh")):
+        h.update(p.name.encode() + p.read_bytes())
+    out = build.BUILD_DIR / "ablation" / f"lib_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared",
+                        "-o", str(out), *map(str, srcs)], check=True)
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for per_kernel in EXPORTS.values():
+        for name in per_kernel.values():
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = [p, p, p, p, p, i, i, p, p, p]
+                getattr(lib, name).restype = i
+    return lib
+
+
+def attributes(lib, csrc, kernel, design):
+    """Registers / local bytes (/ resident blocks per SM, where the build
+    reports them) of both modes, from the attribute export of the design's
+    launch, bound to the signature its source declares."""
+    name = EXPORTS[design][kernel] + "_attrs"
+    m = re.search(rf"{name}\(int occluded,([^)]*)\)",
+                  (csrc / f"{kernel}.cu").read_text())
+    if m is None or not hasattr(lib, name):
         return "not reported"
+    n_out = m.group(1).count("int*")
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_int, *[ctypes.POINTER(ctypes.c_int)] * n_out]
+    fn.restype = ctypes.c_int
     out = {}
     for mode in MODES:
-        for design in build.WALK_VARIANTS[kernel]:
-            vals = [ctypes.c_int(0) for _ in range(3)]
-            err = getattr(lib, f"dpt_{kernel}_attrs")(
-                int(mode == "occluded"), int(design == "group"),
-                *(ctypes.byref(v) for v in vals))
-            if err:
-                raise RuntimeError(f"{kernel} attributes: cudaError {err}")
-            out[f"{mode}/{design}"] = [v.value for v in vals]
+        vals = [ctypes.c_int(0) for _ in range(n_out)]
+        err = fn(int(mode == "occluded"), *(ctypes.byref(v) for v in vals))
+        if err:
+            raise RuntimeError(f"{name}: cudaError {err}")
+        out[mode] = [v.value for v in vals]
     return out
 
 
-def run(lib, kernel, accel, o, d, md, mode, design):
+def run(lib, kernel, design, accel, o, d, md, mode):
+    """One launch on the current stream: (t, tri or occluded) int32.  Both
+    buffers and max_dist are always passed, as older builds expect."""
     nodes = accel.nodes_flat if kernel == "quad_traverse" else accel.nodes
-    return build.launch_walk(kernel, o, d, md if mode == "occluded" else None,
-                             nodes, accel.tris, mode == "occluded",
-                             variant=design, lib=lib)
+    R = o.shape[0]
+    out_t = torch.empty((R,), dtype=torch.float32, device=o.device)
+    out_i = torch.empty((R,), dtype=torch.int32, device=o.device)
+    err = getattr(lib, EXPORTS[design][kernel])(
+        *(ctypes.c_void_p(x.data_ptr()) for x in (o, d, md, nodes,
+                                                   accel.tris)),
+        R, int(mode == "occluded"), ctypes.c_void_p(out_t.data_ptr()),
+        ctypes.c_void_p(out_i.data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err:
+        raise RuntimeError(f"{kernel} ({design}) launch: cudaError {err}")
+    return out_t, out_i
 
 
-def stream_setup(kernel):
+def make_stream(spec, scene, camera, n, dev):
+    """The `n` inputs (o, d, max_dist) of one `--streams` entry."""
+    from dpt_tpu_torch.config import preset
+
+    kind, size = spec.split(":")
+    size = int(size)
+    if kind == "primary":
+        cfg = preset("sylveon512", width=size, height=size)
+        return [chip_smoke.primary_rays(camera, cfg, b, 100 + b, dev)
+                for b in range(n)]
+    if kind == "incoherent":
+        return [chip_smoke.incoherent_rays(scene, size, 200 + k, dev)
+                for k in range(n)]
+    raise ValueError(f"unknown stream {spec!r}")
+
+
+def stream_setup(kernel, specs, n_inputs):
     """(accel, {stream: (inputs, plain results, bound and utilisation)})."""
     from dpt_tpu_torch.accel.bvh import build_accel
     from dpt_tpu_torch.config import preset
@@ -93,19 +155,10 @@ def stream_setup(kernel):
     scene = procedural_scene(chip_smoke.FLAGSHIP_TRIS_TARGET, device=dev)
     accel = build_accel(scene, cfg)
     camera = OrbitCamera().camera(dev)
-    n = chip_smoke.TIMED_CALLS
-    streams = {
-        "primary": [chip_smoke.primary_rays(camera, cfg, b, 100 + b, dev)
-                    for b in range(n)],
-        "incoherent": [chip_smoke.incoherent_rays(
-            scene, chip_smoke.INCOHERENT_RAYS, 200 + k, dev)
-            for k in range(n)],
-        "bounce": [chip_smoke.incoherent_rays(
-            scene, chip_smoke.BOUNCE_RAYS, 500 + k, dev) for k in range(n)],
-    }
     _, _, nearest_ref, occluded_ref = chip_smoke.walk_functions(kernel)
     out = {}
-    for name, inputs in streams.items():
+    for spec in specs:
+        inputs = make_stream(spec, scene, camera, n_inputs, dev)
         plain, info = [], {}
         for i, (o, d, md) in enumerate(inputs):
             stats = {m: {} if i == 0 else None for m in MODES}
@@ -116,38 +169,38 @@ def stream_setup(kernel):
                 for m in MODES:
                     bms, by = chip_smoke.bound(kernel, m == "occluded",
                                                o.shape[0], stats[m], accel)
-                    info[m] = {"bound_ms": bms, "bound_by": by,
+                    info[m] = {"rays": o.shape[0], "bound_ms": bms,
+                               "bound_by": by,
                                "lane_utilisation": chip_smoke.lane_utilisation(
                                    stats[m]["ray_visits"])}
-        out[name] = (inputs, plain, info)
+        out[spec] = (inputs, plain, info)
     return accel, out
 
 
-def check_exact(lib, kernel, accel, inputs, plain, vname, sname, design):
+def check_exact(lib, kernel, design, accel, inputs, plain, what):
     for (o, d, md), (pt, pi, po) in zip(inputs, plain):
-        kt, ki = run(lib, kernel, accel, o, d, md, "nearest", design)
-        _, ko = run(lib, kernel, accel, o, d, md, "occluded", design)
+        kt, ki = run(lib, kernel, design, accel, o, d, md, "nearest")
+        _, ko = run(lib, kernel, design, accel, o, d, md, "occluded")
         torch.cuda.synchronize()
         if not (torch.equal(kt, pt) and torch.equal(ki, pi)
                 and torch.equal(ko.bool(), po)):
-            raise RuntimeError(f"{vname} {kernel} {sname}: differs from the "
-                               "plain walk")
+            raise RuntimeError(f"{what}: differs from the plain walk")
 
 
-def kernel_ms(lib, kernel, accel, inputs, reps, design):
+def kernel_ms(lib, kernel, design, accel, inputs, reps):
     """Mean device ms of one launch per mode, from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for mode in MODES:
-        run(lib, kernel, accel, *inputs[0], mode, design)
+        run(lib, kernel, design, accel, *inputs[0], mode)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.ones(1, device="cuda").add_(1)
         for _ in range(reps):
             for o, d, md in inputs:
                 for mode in MODES:
-                    run(lib, kernel, accel, o, d, md, mode, design)
+                    run(lib, kernel, design, accel, o, d, md, mode)
         torch.cuda.synchronize()
     times = {m: [] for m in MODES}
     for e in prof.events():
@@ -167,7 +220,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variant", action="append", default=[],
                     metavar="NAME=CSRC_DIR")
-    ap.add_argument("--groups", default="", metavar="NAME,...")
+    ap.add_argument("--kernels", default=",".join(KERNELS))
+    ap.add_argument("--streams",
+                    default="primary:1024,incoherent:262144,incoherent:126621")
+    ap.add_argument("--inputs", type=int, default=chip_smoke.TIMED_CALLS)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=2)
     args = ap.parse_args(argv)
@@ -177,41 +233,41 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    kernels = args.kernels.split(",")
     specs = [v.split("=", 1) for v in args.variant] or [["tree", build.CSRC]]
-    libs = {}
+    libs, runs = {}, []
     for name, csrc in specs:
         csrc = ROOT / csrc
-        libs[name] = build.open_library(build.build(csrc))
-        print(f"{name}: {csrc} built in {build.build_seconds:.2f} s; "
-              "regs/local/blocks per SM: " + json.dumps(
-                  {k: attributes(libs[name], csrc, k) for k in KERNELS}),
-              flush=True)
-    setups = {k: stream_setup(k) for k in KERNELS}
+        libs[name] = build_library(csrc)
+        for design, per_kernel in EXPORTS.items():
+            for k in kernels:
+                if k in per_kernel and hasattr(libs[name], per_kernel[k]):
+                    runs.append((name, design, k))
+                    print(f"{name}/{design} {k}: regs/local(/blocks per SM) "
+                          + json.dumps(attributes(libs[name], csrc, k,
+                                                  design)), flush=True)
+    setups = {k: stream_setup(k, args.streams.split(","), args.inputs)
+              for k in kernels}
     for kernel, (_, streams) in setups.items():
         for sname, (_, _, info) in streams.items():
             print(f"{kernel} {sname}: " + json.dumps(info), flush=True)
-    runs = [(v, "lane") for v in libs] + [
-        (v, "group") for v in args.groups.split(",") if v]
-    streams = ("primary", "incoherent", "bounce")
-    res = {f"{v}/{g}": {k: {s: {m: [] for m in MODES} for s in streams}
-                        for k in KERNELS} for v, g in runs}
+    res = {f"{v}/{g}": {} for v, g, _ in runs}
     for rnd in range(args.rounds):
-        for vname, design in runs if rnd % 2 == 0 else runs[::-1]:
-            for kernel, (accel, streams_of) in setups.items():
-                if design not in build.WALK_VARIANTS[kernel]:
-                    continue
-                for sname, (inputs, plain, _) in streams_of.items():
-                    if rnd == 0:
-                        check_exact(libs[vname], kernel, accel, inputs, plain,
-                                    vname, sname, design)
-                    ms = kernel_ms(libs[vname], kernel, accel, inputs,
-                                   args.reps, design)
-                    for m in MODES:
-                        res[f"{vname}/{design}"][kernel][sname][m].append(
-                            ms[m])
-                    print(f"round {rnd} {vname}/{design} {kernel} {sname}: "
-                          f"nearest {ms['nearest']:.4f} ms, occluded "
-                          f"{ms['occluded']:.4f} ms", flush=True)
+        for vname, design, kernel in runs if rnd % 2 == 0 else runs[::-1]:
+            accel, streams_of = setups[kernel]
+            for sname, (inputs, plain, _) in streams_of.items():
+                what = f"{vname}/{design} {kernel} {sname}"
+                if rnd == 0:
+                    check_exact(libs[vname], kernel, design, accel, inputs,
+                                plain, what)
+                ms = kernel_ms(libs[vname], kernel, design, accel, inputs,
+                               args.reps)
+                per = res[f"{vname}/{design}"].setdefault(
+                    kernel, {}).setdefault(sname, {m: [] for m in MODES})
+                for m in MODES:
+                    per[m].append(ms[m])
+                print(f"round {rnd} {what}: nearest {ms['nearest']:.4f} ms, "
+                      f"occluded {ms['occluded']:.4f} ms", flush=True)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "streams": {k: {s: v[2] for s, v in st.items()}

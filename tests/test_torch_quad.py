@@ -367,19 +367,17 @@ def test_cpu_walk_launches_no_kernel():
     assert tq.launch_counts == {"nearest": 0, "occluded": 0}
 
 
-def test_variant_names_a_kernel_design():
-    """Either design may be asked for on any device (the CPU's plain walk
-    has one: same results); another name is refused."""
-    _, _, acc = _port_tables("sphere-sah8")
-    o, d, md = _rays(64, seed=3, spread=1.5)
-    want = tq.quad_nearest(o, d, acc, CFG)
-    for v in ("lane", "group"):
-        got = tq.quad_nearest(o, d, acc, CFG, variant=v)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
-    with pytest.raises(ValueError, match="walk variant"):
-        tq.quad_nearest(o, d, acc, CFG, variant="warp")
-    with pytest.raises(ValueError, match="walk variant"):
-        tq.quad_occluded(o, d, md, acc, CFG, variant="")
+def test_occluded_agrees_with_nearest():
+    """The any-hit query reaches exactly the nearest hit: occluded at
+    max_dist = t is false (no hit is strictly nearer), and occluded at the
+    next float above t is the nearest query's hit."""
+    _, _, acc = _port_tables("knot-sah8")
+    o, d, _ = _rays(256, seed=5, spread=1.5)
+    h, t, _ = tq.quad_nearest(o, d, acc, CFG)
+    assert h.any() and not h.all()
+    assert not tq.quad_occluded(o, d, t, acc, CFG).any()
+    above = torch.nextafter(t, torch.full_like(t, float("inf")))
+    assert torch.equal(tq.quad_occluded(o, d, above, acc, CFG), h)
 
 
 def chain_bvh(n):
@@ -494,30 +492,37 @@ def _card_matches_plain(acc, o, d, md, cfg=CFG):
     wrapper picks and in each design forced, one launch per call."""
     ph, pt, pi = tq.quad_nearest_reference(o, d, acc, cfg)
     po = tq.quad_occluded_reference(o, d, md, acc, cfg)
-    for variant in (None, "lane", "group"):
-        tq.reset_launch_counts()
-        kh, kt, ki = tq.quad_nearest(o, d, acc, cfg, variant=variant)
-        ko = tq.quad_occluded(o, d, md, acc, cfg, variant=variant)
+    tq.reset_launch_counts()
+    kh, kt, ki = tq.quad_nearest(o, d, acc, cfg)
+    ko = tq.quad_occluded(o, d, md, acc, cfg)
+    torch.cuda.synchronize()
+    assert tq.launch_counts == {"nearest": 1, "occluded": 1}
+    assert torch.equal(kh, ph) and torch.equal(kt, pt)
+    assert torch.equal(ki, pi) and torch.equal(ko, po)
+    for design in ("lane", "group"):
+        kt, ki = tq._launch(o, d, None, acc, False, design)
+        _, ko = tq._launch(o, d, md, acc, True, design)
         torch.cuda.synchronize()
-        assert tq.launch_counts == {"nearest": 1, "occluded": 1}
-        assert torch.equal(kh, ph) and torch.equal(kt, pt)
-        assert torch.equal(ki, pi) and torch.equal(ko, po)
+        assert torch.equal(kt, pt) and torch.equal(ki, pi)
+        assert torch.equal(ko.bool(), po)
     return ph, po
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("above", [0, 1])
 def test_both_designs_at_the_switch_over_on_card(cuda, above):
-    """One wave of resident lanes is the largest stream the wrapper walks
-    in groups; one ray more goes one ray per lane."""
-    from dpt_tpu_torch.kernels.build import resident_lanes, walk_variant
-
+    """GROUP_MAX_RAYS is the largest stream the wrapper walks in groups;
+    one ray more goes one ray per lane."""
     _, _, acc = _port_tables("sphere-sah8")
-    n = resident_lanes("quad_traverse", False) + above
+    n = tq.GROUP_MAX_RAYS + above
     o, d, md = (x.to(cuda) for x in _rays(n, seed=37, spread=1.5))
+    acc = acc.to(cuda)
+    tq.reset_launch_counts()
+    tq.quad_nearest(o, d, acc, CFG)
+    tq.quad_occluded(o, d, md, acc, CFG)
     want = "lane" if above else "group"
-    assert walk_variant("quad_traverse", n, False, cuda) == want
-    _card_matches_plain(acc.to(cuda), o, d, md)
+    assert tq.design_counts == {"lane": 0, "group": 0, want: 2}
+    _card_matches_plain(acc, o, d, md)
 
 
 @pytest.mark.cuda

@@ -282,17 +282,17 @@ def test_stack_guard_and_bad_inputs():
     assert tw.launch_counts == {"nearest": 0, "occluded": 0}
 
 
-def test_variant_names_a_kernel_design():
-    """K2 has one design, one ray per lane: "lane" may be asked for on any
-    device (the CPU's plain walk: same results); "group" and other names
-    are refused."""
-    _, acc = _port_tables("sphere-sah8")
-    o, d, md = _rays(64, seed=3, spread=1.5)
-    assert torch.equal(tw.wide_occluded(o, d, md, acc, CFG, variant="lane"),
-                       tw.wide_occluded(o, d, md, acc, CFG))
-    for bad in ("group", "warp"):
-        with pytest.raises(ValueError, match="walk variant"):
-            tw.wide_nearest(o, d, acc, CFG, variant=bad)
+def test_occluded_agrees_with_nearest():
+    """The any-hit query reaches exactly the nearest hit: occluded at
+    max_dist = t is false (no hit is strictly nearer), and occluded at the
+    next float above t is the nearest query's hit."""
+    _, acc = _port_tables("knot-sah8")
+    o, d, _ = _rays(256, seed=5, spread=1.5)
+    h, t, _ = tw.wide_nearest(o, d, acc, CFG)
+    assert h.any() and not h.all()
+    assert not tw.wide_occluded(o, d, t, acc, CFG).any()
+    above = torch.nextafter(t, torch.full_like(t, float("inf")))
+    assert torch.equal(tw.wide_occluded(o, d, above, acc, CFG), h)
 
 
 def test_pallas_render_matches_quad_and_brute():
@@ -362,18 +362,17 @@ def test_plain_walk_at_stack_guard_depth():
 
 
 def _card_matches_plain(acc, o, d, md, cfg=CFG):
-    """K2 on the card equals the plain walk exactly, by default and with
-    its one design named, one launch per call."""
+    """K2 on the card equals the plain walk exactly, one launch per
+    call."""
     ph, pt, pi = tw.wide_nearest_reference(o, d, acc, cfg)
     po = tw.wide_occluded_reference(o, d, md, acc, cfg)
-    for variant in (None, "lane"):
-        tw.reset_launch_counts()
-        kh, kt, ki = tw.wide_nearest(o, d, acc, cfg, variant=variant)
-        ko = tw.wide_occluded(o, d, md, acc, cfg, variant=variant)
-        torch.cuda.synchronize()
-        assert tw.launch_counts == {"nearest": 1, "occluded": 1}
-        assert torch.equal(kh, ph) and torch.equal(kt, pt)
-        assert torch.equal(ki, pi) and torch.equal(ko, po)
+    tw.reset_launch_counts()
+    kh, kt, ki = tw.wide_nearest(o, d, acc, cfg)
+    ko = tw.wide_occluded(o, d, md, acc, cfg)
+    torch.cuda.synchronize()
+    assert tw.launch_counts == {"nearest": 1, "occluded": 1}
+    assert torch.equal(kh, ph) and torch.equal(kt, pt)
+    assert torch.equal(ki, pi) and torch.equal(ko, po)
     return ph, po
 
 
