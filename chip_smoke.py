@@ -2,7 +2,7 @@
 
     python chip_smoke.py
 
-Drives `dpt_tpu_torch` only (no JAX, no `dpt_tpu`), in eleven phases, each
+Drives `dpt_tpu_torch` only (no JAX, no `dpt_tpu`), in sixteen phases, each
 printing one line or more:
 
   1. device   — a CUDA card of compute capability 9.0; prints
@@ -67,6 +67,29 @@ printing one line or more:
                 "resuming from batch 2" and the derived fraction); a
                 scripted `interactive` session at box512 (orbit, render 2,
                 save, status, quit); `info`.
+ 12. sharded render — two ranks on the one card (gloo, by the backend rule)
+                run `render --sharded --num-processes 2 --process-id N
+                --coordinator localhost:PORT` on the flagship (2 batches);
+                rank 0's image equals the single process's at rtol 1e-5,
+                atol 1e-6; each rank launched K1; the backend and batch_ms
+                of each rank.
+ 13. sharded optimize — two ranks take 2 tape steps at 1024² (quad,
+                albedo) through `optimize --sharded`; rank 0's albedo
+                equals the single process's at rtol 1e-5, atol 1e-7; only
+                rank 0 writes its checkpoint, and a rerun to 3 steps
+                resumes at step 2 on both ranks (rank 1 has no file).
+ 14. lbvh     — the flagship's LBVH built on the card is the CPU build byte
+                for byte, and so are prune_bvh + pack_quad of it; K1 over
+                it equals the plain walk exactly (1024² primary stream,
+                126,621 incoherent rays); one `render --bvh-builder lbvh`
+                batch launches K1 16 + 16 times; the card's build ms beside
+                the CPU's and the host SAH build's.
+ 15. wavefront — a flagship batch with wavefront_sort equals the batch
+                without it bit for bit and launches K1 16 + 16 times; batch
+                ms of each.
+ 16. walks    — `bvh`, `packet` and `threaded` (the per-ray walk in torch
+                ops) render box512 at 64² on the card, allclose to brute at
+                rtol 1e-3, atol 2e-3.
 
 Then one JSON line with the kernels (each with its design; for K1 and K2
 the primary stream's numbers, the other streams' under "_incoherent" and
@@ -968,6 +991,320 @@ def phase_cli(tmp):
           f"devices {info['devices']}", flush=True)
 
 
+# The port's processes: every rank of a multi-process phase runs this
+# program with the CLI's arguments, and prints its K1 launches at the end.
+RANK_DRIVER = (
+    "import json, sys\n"
+    "from dpt_tpu_torch import cli\n"
+    "from dpt_tpu_torch.kernels import quad\n"
+    "quad.reset_launch_counts()\n"
+    "cli.main(sys.argv[1:])\n"
+    "print('K1_LAUNCHES ' + json.dumps(quad.launch_counts), flush=True)\n")
+RANKS = 2
+RANK_TIMEOUT = 240
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def run_cli_ranks(tag, argv_of_rank):
+    """The CLI once per rank (RANKS ranks on the one card, gloo by the
+    backend rule), all at once; returns [(output, K1 launches)] per rank.
+    A rank that fails fails the phase, with every rank's output."""
+    from dpt_tpu_torch.dist.launch import RankFailure, free_port, run_ranks
+
+    port = free_port()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [x for x in env.get("PYTHONPATH", "").split(os.pathsep) if x])
+    cmds = [[sys.executable, "-c", RANK_DRIVER, *argv_of_rank(r),
+             "--num-processes", str(RANKS), "--process-id", str(r),
+             "--coordinator", f"localhost:{port}"] for r in range(RANKS)]
+    try:
+        outs = run_ranks(cmds, RANK_TIMEOUT, env=env, cwd=ROOT)
+    except RankFailure as e:
+        raise SmokeFailure(f"[{tag}] {e}") from None
+    res = []
+    for r, text in enumerate(outs):
+        line = [x for x in text.splitlines() if x.startswith("K1_LAUNCHES ")]
+        require(len(line) == 1, f"[{tag}] rank {r} printed no launch counts:"
+                f"\n{text[-3000:]}")
+        res.append((text, json.loads(line[0].split(" ", 1)[1])))
+    return res
+
+
+def metrics_rows(tag, path, outs, event):
+    """Metrics rows of `event` per rank: rank 0's from the --metrics file,
+    the others' from their standard output."""
+    with open(path) as f:
+        rows = [[json.loads(x) for x in f if x.strip()]]
+    for text, _ in outs[1:]:
+        rows.append([json.loads(x) for x in text.splitlines()
+                     if x.startswith("{")])
+    rows = [[x for x in rr if x.get("event") == event] for rr in rows]
+    for r, rr in enumerate(rows):
+        require(rr and all(x["rank"] == r and x["world_size"] == RANKS
+                           for x in rr), f"[{tag}] rank {r} rows {rr}")
+    return rows
+
+
+def phase_sharded_render(tmp):
+    """Two ranks render the flagship through `render --sharded`; rank 0's
+    image equals the single process's."""
+    from dpt_tpu_torch import cli
+    from dpt_tpu_torch.kernels.quad import launch_counts, reset_launch_counts
+
+    tag = "12 sharded render"
+    batches = ["--batches", "2"]
+    single = os.path.join(tmp, "single.npy")
+    reset_launch_counts()
+    cli.main(["render", *_flagship_args("quad"), *batches, "--out", single,
+              "--metrics", os.path.join(tmp, "single.jsonl")])
+    torch.cuda.synchronize()
+    single_counts = dict(launch_counts)
+    out = os.path.join(tmp, "sharded.npy")
+    metrics = os.path.join(tmp, "sharded.jsonl")
+    outs = run_cli_ranks(tag, lambda r: [
+        "render", *_flagship_args("quad"), *batches, "--sharded", "--out",
+        out, "--metrics", metrics])
+    a, b = np.load(out), np.load(single)
+    diff = float(np.abs(a - b).max())
+    require(np.allclose(a, b, rtol=1e-5, atol=1e-6),
+            f"[{tag}] rank 0's image differs from the single process's "
+            f"(max |diff| {diff:.3g})")
+    for r, (_, counts) in enumerate(outs):
+        require(counts["nearest"] > 0 and counts["occluded"] > 0,
+                f"[{tag}] rank {r} did not launch K1: {counts}")
+    rows = metrics_rows(tag, metrics, outs, "batch")
+    backends = {x["backend"] for rr in rows for x in rr}
+    require(backends == {"gloo"}, f"[{tag}] backends {backends} (2 ranks "
+            "on one card take gloo)")
+    print(f"[{tag}] sylveon512 1024^2, 2 batches over {RANKS} ranks on one "
+          f"card, backend gloo: rank 0's image vs the single process max "
+          f"|diff| {diff:.3g}; K1 launches per rank "
+          + ", ".join(str(c) for _, c in outs)
+          + f" (single process {single_counts}); batch_ms per rank "
+          + "; ".join(f"rank {r}: " + ", ".join(f"{x['batch_ms']:.1f}"
+                                               for x in rr)
+                      for r, rr in enumerate(rows)), flush=True)
+    return [c for _, c in outs], rows
+
+
+def phase_sharded_optimize(tmp):
+    """Two ranks take 2 tape steps through `optimize --sharded` (rank 0
+    alone keeps a checkpoint), equal to the single process; then resume
+    from rank 0's checkpoint to step 3 on both ranks."""
+    from dpt_tpu_torch import cli
+
+    tag = "13 sharded optimize"
+    target = os.path.join(tmp, "target_quad.npy")  # phase 7's
+    require(os.path.exists(target), f"[{tag}] no target {target}")
+    opt = ["optimize", *_flagship_args("quad"), "--target", target,
+           "--opt-params", "albedo", "--init-albedo", "0.4", "0.4", "0.4",
+           "--fixed-seeds", "--backward", "tape"]
+    single = os.path.join(tmp, "single_opt.npz")
+    cli.main([*opt, "--steps", "2", "--out", single, "--metrics",
+              os.path.join(tmp, "single_opt.jsonl")])
+    out = os.path.join(tmp, "sharded_opt.npz")
+    metrics = os.path.join(tmp, "sharded_opt.jsonl")
+
+    def argv(steps):
+        return lambda r: [*opt, "--sharded", "--steps", str(steps), "--out",
+                          out, "--metrics", metrics, "--checkpoint",
+                          os.path.join(tmp, f"opt_ck{r}.npz")]
+
+    outs = run_cli_ranks(tag, argv(2))
+    a, b = np.load(out)["albedo"], np.load(single)["albedo"]
+    require(np.allclose(a, b, rtol=1e-5, atol=1e-7),
+            f"[{tag}] rank 0's albedo {a.tolist()} vs the single process's "
+            f"{b.tolist()}")
+    require(os.path.exists(os.path.join(tmp, "opt_ck0.npz"))
+            and not os.path.exists(os.path.join(tmp, "opt_ck1.npz")),
+            f"[{tag}] only rank 0 writes the checkpoint")
+    for r, (_, counts) in enumerate(outs):
+        require(counts["nearest"] > 0 and counts["occluded"] > 0,
+                f"[{tag}] rank {r} did not launch K1: {counts}")
+    rows = metrics_rows(tag, metrics, outs, "opt_step")
+    resumed = run_cli_ranks(tag, argv(3))
+    for r, (text, _) in enumerate(resumed):
+        require("resuming from step 2" in text,
+                f"[{tag}] rank {r} did not resume:\n{text[-3000:]}")
+    rrows = metrics_rows(tag, metrics, resumed, "opt_step")
+    require(all([x["step"] for x in rr] == [2] for rr in rrows[1:]),
+            f"[{tag}] resumed rows {rrows}")
+    print(f"[{tag}] 1024^2 quad albedo, 2 tape steps over {RANKS} ranks: "
+          f"rank 0's albedo vs the single process max |diff| "
+          f"{float(np.abs(a - b).max()):.3g}; K1 launches per rank "
+          + ", ".join(str(c) for _, c in outs) + "; step_ms per rank "
+          + "; ".join(f"rank {r}: " + ", ".join(f"{x['step_ms']:.1f}"
+                                               for x in rr)
+                      for r, rr in enumerate(rows))
+          + "; resumed from rank 0's checkpoint at step 2 on every rank "
+          "(rank 1 has no file)", flush=True)
+    return [c for _, c in outs]
+
+
+def phase_lbvh(device, tmp):
+    """The flagship's LBVH built on the card ≡ built on the CPU after
+    prune_bvh and pack_quad; K1 over it ≡ the plain walk; one flagship
+    batch with --bvh-builder lbvh."""
+    from dpt_tpu_torch.accel.bvh import build_bvh_sah, host_bvh, prune_bvh
+    from dpt_tpu_torch.accel.lbvh import build_lbvh
+    from dpt_tpu_torch.config import preset
+    from dpt_tpu_torch.kernels import quad
+    from dpt_tpu_torch.scene.builder import procedural_scene
+    from dpt_tpu_torch.scene.camera import OrbitCamera
+
+    tag = "14 lbvh"
+    scene = procedural_scene(FLAGSHIP_TRIS_TARGET, device=device)
+    cpu_scene = scene.to("cpu")
+    times = []
+    for _ in range(4):  # the first call warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = build_lbvh(scene.vertices, scene.indices, leaf_size=8)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    cpu_tree = build_lbvh(cpu_scene.vertices, cpu_scene.indices, leaf_size=8)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    v = cpu_scene.vertices.numpy()
+    idx = cpu_scene.indices.numpy()
+    t0 = time.perf_counter()
+    build_bvh_sah(v, idx, leaf_size=8)
+    sah_ms = (time.perf_counter() - t0) * 1e3
+    a, b = host_bvh(tree), host_bvh(cpu_tree)
+    require(all(np.array_equal(getattr(a, f), getattr(b, f))
+                and getattr(a, f).dtype == getattr(b, f).dtype
+                for f in ("node_min", "node_max", "node_left", "node_right",
+                          "tri_order")),
+            f"[{tag}] the card's LBVH differs from the CPU's")
+    corners = (v[idx[:, 0]], v[idx[:, 1]], v[idx[:, 2]])
+    qa = quad.pack_quad(prune_bvh(tree), *corners, device=device)
+    qb = quad.pack_quad(prune_bvh(cpu_tree), *corners, device="cpu")
+    require(qa.nodes_flat.cpu().numpy().tobytes()
+            == qb.nodes_flat.numpy().tobytes()
+            and qa.tris.cpu().numpy().tobytes() == qb.tris.numpy().tobytes(),
+            f"[{tag}] pack_quad of the card's LBVH differs from the CPU's")
+    cfg = preset("sylveon512", width=1024, height=1024, bvh_builder="lbvh")
+    camera = OrbitCamera().camera(device)
+    streams = {"primary 1024^2": primary_rays(camera, cfg, 0, 600, device),
+               f"incoherent {BOUNCE_RAYS}": incoherent_rays(
+                   scene, BOUNCE_RAYS, 700, device)}
+    for name, (o, d, md) in streams.items():
+        kh, kt, ki = quad.quad_nearest(o, d, qa, cfg)
+        ko = quad.quad_occluded(o, d, md, qa, cfg)
+        ph, pt, pi = quad.quad_nearest_reference(o, d, qa, cfg)
+        po = quad.quad_occluded_reference(o, d, md, qa, cfg)
+        torch.cuda.synchronize()
+        require(torch.equal(kh, ph) and torch.equal(kt, pt)
+                and torch.equal(ki, pi) and torch.equal(ko, po),
+                f"[{tag}] K1 over the LBVH differs from the plain walk on "
+                f"{name}")
+    quad.reset_launch_counts()
+    img, err = _run_cli(["render", *_flagship_args("quad"), "--bvh-builder",
+                         "lbvh", "--batches", "1", "--out",
+                         os.path.join(tmp, "lbvh.png"), "--metrics",
+                         os.path.join(tmp, "lbvh.jsonl")])
+    torch.cuda.synchronize()
+    counts = dict(quad.launch_counts)
+    image_ok(img, (1024, 1024, 3), f"[{tag}] LBVH flagship image")
+    require(counts == {"nearest": 16, "occluded": 16},
+            f"[{tag}] K1 launches {counts} in the LBVH batch")
+    print(f"[{tag}] flagship {scene.n_triangles} tris, leaf 8: LBVH "
+          f"{a.node_left.shape[0]} nodes, pruned and packed {qa.n_wide} "
+          f"records / {qa.tris.shape[0]} leaf rows, card ≡ CPU byte for "
+          f"byte; LBVH build on the card ms "
+          + ", ".join(f"{x:.1f}" for x in times)
+          + f" (first call first), on the CPU {cpu_ms:.1f}, host SAH build "
+          f"{sah_ms:.1f}; K1 ≡ plain walk exactly on "
+          + ", ".join(streams) + f"; one --bvh-builder lbvh batch: K1 "
+          f"launches {counts}", flush=True)
+    return counts, {"card_ms": times, "cpu_ms": cpu_ms, "sah_ms": sah_ms}
+
+
+def _batch_ms(fn, n=3):
+    """Host-clock ms of n synchronised calls, after one warm-up."""
+    fn()
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_wavefront(device):
+    """One flagship batch with wavefront_sort is the batch without it, bit
+    for bit, and launches K1; batch ms of each."""
+    from dpt_tpu_torch.accel.bvh import build_accel
+    from dpt_tpu_torch.config import preset
+    from dpt_tpu_torch.kernels import quad
+    from dpt_tpu_torch.render.renderer import render_sample
+    from dpt_tpu_torch.scene.builder import procedural_scene
+    from dpt_tpu_torch.scene.camera import OrbitCamera
+
+    tag = "15 wavefront"
+    cfg = preset("sylveon512", width=1024, height=1024)
+    wf = cfg.replace(wavefront_sort=True)
+    scene = procedural_scene(FLAGSHIP_TRIS_TARGET, device=device)
+    accel = build_accel(scene, cfg)
+    camera = OrbitCamera().camera(device)
+    ref = render_sample(scene, camera, cfg, 5, accel)
+    quad.reset_launch_counts()
+    got = render_sample(scene, camera, wf, 5, accel)
+    torch.cuda.synchronize()
+    counts = dict(quad.launch_counts)
+    require(torch.equal(got, ref), f"[{tag}] the wavefront-sorted batch "
+            f"differs (max |diff| {float((got - ref).abs().max()):.3g})")
+    require(counts == {"nearest": 16, "occluded": 16},
+            f"[{tag}] K1 launches {counts}")
+    ms = {}
+    for name, c in (("per-query sort", cfg), ("wavefront sort", wf),
+                    ("per-query sort again", cfg)):
+        ms[name] = _batch_ms(lambda: render_sample(scene, camera, c, 6,
+                                                   accel))
+    print(f"[{tag}] flagship 1024^2 batch with wavefront_sort ≡ without, "
+          f"bit for bit; K1 launches {counts}; batch ms (host clock, "
+          "synchronised) " + "; ".join(
+              f"{k}: " + ", ".join(f"{x:.1f}" for x in v)
+              for k, v in ms.items()), flush=True)
+    return counts, ms
+
+
+def phase_walks(device):
+    """bvh / packet / threaded render box512 at 64² on the card, allclose
+    to brute."""
+    from dpt_tpu_torch.accel.bvh import build_accel
+    from dpt_tpu_torch.config import preset
+    from dpt_tpu_torch.render.renderer import render_sample
+    from dpt_tpu_torch.scene.builder import cornell_box_scene
+    from dpt_tpu_torch.scene.camera import OrbitCamera
+
+    tag = "16 walks"
+    cfg = preset("box512", width=64, height=64)
+    scene = cornell_box_scene(device=device)
+    camera = OrbitCamera().camera(device)
+    ref = render_sample(scene, camera, cfg, 0)
+    image_ok(ref, (64, 64, 3), f"[{tag}] brute image")
+    line = []
+    for trav in ("bvh", "packet", "threaded"):
+        c = cfg.replace(traversal=trav)
+        accel = build_accel(scene, c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render_sample(scene, camera, c, 0, accel)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        bad = ~torch.isclose(img, ref, rtol=1e-3, atol=2e-3)
+        require(not bool(bad.any()), f"[{tag}] {trav} differs from brute "
+                f"(max |diff| {float((img - ref).abs().max()):.3g})")
+        line.append(f"{trav} max |diff| {float((img - ref).abs().max()):.3g}"
+                    f" in {dt:.0f} ms")
+    print(f"[{tag}] box512 64^2 {cfg.spp} spp on the card vs brute: "
+          + "; ".join(line), flush=True)
+
+
 # Per-stream numbers each kernels-line entry carries: the primary stream's
 # under these names, every other stream's with "_<stream>" appended.
 ENTRY_KEYS = ("ms", "kernel_ms", "kernel_ms_lane", "kernel_ms_group",
@@ -1018,11 +1355,23 @@ def main():
         k3 = phase_k3(device)
         box_counts, _ = phase_box(device, tmp)
         phase_cli(tmp)
+        sharded_counts, _ = phase_sharded_render(tmp)
+        sharded_opt_counts = phase_sharded_optimize(tmp)
+        lbvh_counts, _ = phase_lbvh(device, tmp)
+        wavefront_counts, _ = phase_wavefront(device)
+        phase_walks(device)
 
     # No PyTorch call computes a BVH walk or the brute-force nearest hit,
     # so library_ms is null.
+    per_rank = {f"launches_sharded_rank{r}": c
+                for r, c in enumerate(sharded_counts)}
+    per_rank.update({f"launches_sharded_optimize_rank{r}": c
+                     for r, c in enumerate(sharded_opt_counts)})
     kernels = (kernel_entries("quad_traverse", k1, render_counts,
-                              launches_optimize=quad_counts)
+                              launches_optimize=quad_counts,
+                              launches_lbvh=lbvh_counts,
+                              launches_wavefront=wavefront_counts,
+                              **per_rank)
                + kernel_entries("wide_traverse", k2, wide_counts)
                + kernel_entries("intersect_nearest",
                                 {s: {"nearest": v} for s, v in k3.items()},

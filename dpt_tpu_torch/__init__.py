@@ -13,8 +13,12 @@ with checkpoints, `cli interactive`) runs the brute-force search.  The BVH
 walks and the brute-force search run as hand-written CUDA kernels on the
 card (csrc/quad_traverse.cu, csrc/wide_traverse.cu,
 csrc/intersect_nearest.cu) and as their plain PyTorch versions on the CPU.
-OBJ scenes load with `load_scene`.  Entry points default to the card
-(`device="cuda"`).
+OBJ scenes load with `load_scene`.  Renders and optimisation split
+their pixel rows over the ranks of a torch.distributed group
+(dist/sharding.py, the CLI's --sharded); the LBVH builds on the render
+device (accel/lbvh.py); `bvh`, `packet` and `threaded` take the per-ray
+stack walk in torch ops (accel/traverse.py); entry.py holds the driver
+entry points.  Entry points default to the card (`device="cuda"`).
 
 It imports torch and numpy only, never jax or dpt_tpu.
 """

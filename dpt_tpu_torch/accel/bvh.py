@@ -9,8 +9,8 @@ the permutation and leaves store ranges into it.
 Node encoding: internal → left/right = child node ids;
 leaf → left = -count, right = first index into tri_order.
 
-`build_accel` handles the `brute`, `quad` and `pallas` traversals of the
-port.
+`build_accel` builds the accel of every traversal, from the host builders
+or from the LBVH built on the scene's device (accel/lbvh.py).
 """
 
 from __future__ import annotations
@@ -18,11 +18,14 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
 class BVH:
-    """SoA BVH of host numpy arrays (packing is host work)."""
+    """SoA BVH: host numpy arrays from the host builders (packing is host
+    work), tensors on the scene's device from the LBVH and for the
+    per-ray walk (accel/traverse.py)."""
 
     node_min: np.ndarray  # [N, 3] f32
     node_max: np.ndarray  # [N, 3] f32
@@ -201,26 +204,93 @@ def build_bvh_sah(vertices: np.ndarray, indices: np.ndarray,
     )
 
 
+def _numpy(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def host_bvh(bvh: BVH) -> BVH:
+    """The tree as host numpy arrays."""
+    return BVH(*(_numpy(getattr(bvh, f.name))
+                 for f in dataclasses.fields(BVH)))
+
+
+def device_bvh(bvh: BVH, device) -> BVH:
+    """The tree as tensors on `device` (the dtypes kept)."""
+    return BVH(*(torch.as_tensor(_numpy(getattr(bvh, f.name)), device=device)
+                 for f in dataclasses.fields(BVH)))
+
+
+def prune_bvh(bvh: BVH) -> BVH:
+    """Drop the nodes unreachable from the root and renumber the children;
+    a host BVH (numpy) of the same tree.
+
+    The LBVH's range-leaf collapse (accel/lbvh.py) leaves the interior and
+    single-triangle slots of collapsed subtrees in place; packing those
+    dead slots would waste about 8x the leaf rows, so the packed walks
+    prune first."""
+    left = _numpy(bvh.node_left)
+    right = _numpy(bvh.node_right)
+    n = left.shape[0]
+    reach = np.zeros(n, bool)
+    stack = [0]
+    while stack:
+        nid = stack.pop()
+        if reach[nid]:
+            continue
+        reach[nid] = True
+        if left[nid] >= 0:  # internal
+            stack.append(int(left[nid]))
+            stack.append(int(right[nid]))
+    remap = np.cumsum(reach) - 1  # old id -> new id (valid where reach)
+    keep = np.nonzero(reach)[0]
+    new_left = left[keep].copy()
+    new_right = right[keep].copy()
+    internal = new_left >= 0
+    new_left[internal] = remap[new_left[internal]]
+    new_right[internal] = remap[new_right[internal]]
+    return BVH(node_min=_numpy(bvh.node_min)[keep],
+               node_max=_numpy(bvh.node_max)[keep],
+               node_left=new_left, node_right=new_right,
+               tri_order=_numpy(bvh.tri_order))
+
+
+#: Traversals that walk a packed table built on the host; the LBVH is
+#: pruned for these (as in the JAX package, `threaded` too).
+PRUNED_TRAVERSALS = ("quad", "pallas", "threaded")
+
+
 def build_accel(scene, cfg):
-    """Build the acceleration structure requested by cfg for a Scene: None
-    for 'brute', a QuadAccel for 'quad', a WideAccel for 'pallas', on the
-    scene's device."""
+    """The accel cfg asks for, on the scene's device: None for 'brute', a
+    QuadAccel for 'quad', a WideAccel for 'pallas', and for 'bvh', 'packet'
+    and 'threaded' the binary BVH the per-ray walk takes
+    (accel/traverse.py).  bvh_builder 'median' and 'sah' build on the
+    host; 'lbvh' builds on the scene's device, pruned for the
+    PRUNED_TRAVERSALS when its leaves hold more than one triangle."""
     if cfg.traversal == "brute":
         return None
-    if cfg.traversal not in ("quad", "pallas"):
-        # RenderConfig already rejects the known traversals not ported yet.
+    if cfg.traversal not in ("quad", "pallas", "bvh", "packet", "threaded"):
         raise ValueError(f"unknown traversal mode: {cfg.traversal}")
-    v = scene.vertices.detach().cpu().numpy()
-    idx = scene.indices.detach().cpu().numpy()
-    if cfg.bvh_builder == "median":
-        bvh = build_bvh_median(v, idx, leaf_size=cfg.bvh_leaf_size)
-    elif cfg.bvh_builder == "sah":
-        bvh = build_bvh_sah(v, idx, leaf_size=cfg.bvh_leaf_size)
-    elif cfg.bvh_builder == "lbvh":
-        raise NotImplementedError(
-            "bvh_builder='lbvh' is not ported yet: ROADMAP Queue 1 item 6")
+    if cfg.bvh_builder == "lbvh":
+        from dpt_tpu_torch.accel.lbvh import build_lbvh
+
+        bvh = build_lbvh(scene.vertices, scene.indices,
+                         leaf_size=cfg.bvh_leaf_size)
+        if cfg.bvh_leaf_size > 1 and cfg.traversal in PRUNED_TRAVERSALS:
+            bvh = prune_bvh(bvh)
+    elif cfg.bvh_builder in ("median", "sah"):
+        build = (build_bvh_median if cfg.bvh_builder == "median"
+                 else build_bvh_sah)
+        bvh = build(scene.vertices.detach().cpu().numpy(),
+                    scene.indices.detach().cpu().numpy(),
+                    leaf_size=cfg.bvh_leaf_size)
     else:
         raise ValueError(f"unknown bvh_builder: {cfg.bvh_builder}")
+    if cfg.traversal in ("bvh", "packet", "threaded"):
+        return device_bvh(bvh, scene.device)
+    bvh = host_bvh(bvh)
+    v = scene.vertices.detach().cpu().numpy()
+    idx = scene.indices.detach().cpu().numpy()
     corners = (v[idx[:, 0]], v[idx[:, 1]], v[idx[:, 2]])
     if cfg.traversal == "pallas":
         from dpt_tpu_torch.kernels.wide import pack_wide

@@ -10,10 +10,16 @@ Counterpart of those subcommands of `dpt_tpu/cli.py`:
     python -m dpt_tpu_torch.cli interactive --out-dir shots < commands.txt
     python -m dpt_tpu_torch.cli info
 
+Multi-process (`render` and `optimize`): start the same command once per
+rank with `--num-processes N --process-id R --coordinator HOST:PORT`
+(dist/sharding.py picks the backend: nccl with a card per rank, gloo on
+the CPU or on shared cards).  `--sharded` splits the frame's rows over the
+ranks; rank 0 alone writes files (image, checkpoint, recovered
+parameters, the --metrics file; the other ranks log their metrics rows to
+standard output), and a resume takes rank 0's checkpoint on every rank.
+
 The default device is `cuda`, and a command fails when no card is present;
-the CPU runs only when asked for with `--device cpu`.  Options of the JAX
-CLI that are not ported yet are accepted and exit with a "not yet ported"
-error naming their ROADMAP item.
+the CPU runs only when asked for with `--device cpu`.
 """
 
 from __future__ import annotations
@@ -27,16 +33,7 @@ import sys
 
 PRESET_NAMES = ["box256", "box512", "sylveon512", "sylveon1024",
                 "sylveon2048"]
-TRAVERSALS = ["brute", "quad", "pallas"]
-
-# option dest -> the ROADMAP item that ports it (render and optimize).
-_NOT_PORTED = {
-    "sharded": "--sharded (ROADMAP Queue 1 item 4)",
-    "coordinator": "--coordinator (ROADMAP Queue 1 item 4)",
-    "num_processes": "--num-processes (ROADMAP Queue 1 item 4)",
-    "process_id": "--process-id (ROADMAP Queue 1 item 4)",
-    "wavefront_sort": "--wavefront-sort (ROADMAP Queue 1 item 5)",
-}
+TRAVERSALS = ["brute", "quad", "pallas", "bvh", "packet", "threaded"]
 
 # RenderConfig fields that change what is rendered.  A checkpoint's config
 # key hashes only these and the scene choice: the others (traversal, BVH
@@ -84,12 +81,17 @@ def _add_cfg_args(r):
     r.add_argument("--spp", type=int)
     r.add_argument("--traversal", choices=TRAVERSALS,
                    help="nearest/any-hit backend (quad = 4-wide BVH walk, "
-                        "pallas = paired-children BVH walk)")
-    r.add_argument("--bvh-builder", choices=["median", "sah"])
+                        "pallas = paired-children BVH walk, bvh / packet / "
+                        "threaded = per-ray stack walk in torch ops)")
+    r.add_argument("--bvh-builder", choices=["median", "sah", "lbvh"],
+                   help="lbvh builds on the render device")
     r.add_argument("--leaf-size", type=_positive_int,
                    help="max triangles per BVH leaf")
     r.add_argument("--sort", action="store_true",
                    help="coherence-sort every query stream after the primary")
+    r.add_argument("--wavefront-sort", action="store_true",
+                   help="sort the whole carry once per bounce by hit "
+                        "position (replaces --sort's per-query sort)")
     r.add_argument("--no-sss", action="store_true")
     r.add_argument("--rr", action="store_true", help="Russian roulette")
     r.add_argument("--compact-frac", type=_frac_or_auto, default=None,
@@ -99,12 +101,12 @@ def _add_cfg_args(r):
     r.add_argument("--yaw", type=float, default=0.0)
     r.add_argument("--pitch", type=float, default=0.0)
     r.add_argument("--radius", type=float, default=5.0)
-    # Accepted for command-line parity; not ported yet.
-    r.add_argument("--sharded", action="store_true")
-    r.add_argument("--coordinator")
-    r.add_argument("--num-processes", type=_positive_int)
-    r.add_argument("--process-id", type=int)
-    r.add_argument("--wavefront-sort", action="store_true")
+    r.add_argument("--sharded", action="store_true",
+                   help="split the frame's rows over the ranks")
+    r.add_argument("--coordinator", help="HOST:PORT of rank 0's rendezvous")
+    r.add_argument("--num-processes", type=_positive_int,
+                   help="ranks of the job (each runs this command)")
+    r.add_argument("--process-id", type=int, help="this process's rank")
 
 
 def _build_parser():
@@ -199,6 +201,8 @@ def _make_cfg(args):
         over["bvh_leaf_size"] = args.leaf_size
     if args.sort:
         over["ray_sort"] = True
+    if args.wavefront_sort:
+        over["wavefront_sort"] = True
     if args.no_sss:
         over["enable_sss"] = False
     if args.rr:
@@ -248,18 +252,35 @@ def _device(args, parser):
     return device
 
 
+def _join(args, parser, device):
+    """Check the multi-process options and join the process group; returns
+    the device this rank renders on."""
+    from dpt_tpu_torch.dist.sharding import init_distributed, rank_device
+
+    n = args.num_processes
+    if n is None or n == 1:
+        if args.coordinator is not None or args.process_id is not None:
+            parser.error("--coordinator and --process-id need "
+                         "--num-processes N > 1")
+        return device
+    if args.coordinator is None or args.process_id is None:
+        parser.error(f"--num-processes {n} needs --coordinator HOST:PORT and "
+                     "--process-id")
+    if not 0 <= args.process_id < n:
+        parser.error(f"--process-id {args.process_id} is not in [0, {n})")
+    init_distributed(args.coordinator, n, args.process_id, device)
+    return rank_device(device, args.process_id)
+
+
 def _setup(args, parser):
-    """Refuse what is not ported, then (device, cfg, scene, orbit, camera,
-    accel), with `--compact-frac auto` resolved by a probe render."""
+    """Join the process group (multi-process runs), then (device, cfg,
+    scene, orbit, camera, accel), with `--compact-frac auto` resolved by a
+    probe render."""
     from dpt_tpu_torch.accel.bvh import build_accel
     from dpt_tpu_torch.render.renderer import auto_compact_frac
     from dpt_tpu_torch.scene.camera import OrbitCamera
 
-    for dest, what in _NOT_PORTED.items():
-        given = getattr(args, dest)
-        if given is not None and given is not False:
-            parser.error(f"{what} is not yet ported to dpt_tpu_torch")
-    device = _device(args, parser)
+    device = _join(args, parser, _device(args, parser))
     cfg = _make_cfg(args)
     scene = _pick_scene(args, device)
     orbit = OrbitCamera(yaw=args.yaw, pitch=args.pitch, radius=args.radius)
@@ -270,6 +291,43 @@ def _setup(args, parser):
         print(f"auto compact_frac = {frac:.4f}", file=sys.stderr)
         cfg = cfg.replace(compact_frac=frac)
     return device, cfg, scene, orbit, camera, accel
+
+
+def _logger(args):
+    """The metrics sink of this rank: --metrics on rank 0, standard output
+    on the others; in a process group every row carries the rank, the
+    world size and the backend."""
+    import torch.distributed as dist
+
+    from dpt_tpu_torch.dist.sharding import world
+    from dpt_tpu_torch.utils.metrics import JsonlLogger
+
+    rank, size = world()
+    common = {}
+    if size > 1:
+        common = {"rank": rank, "world_size": size,
+                  "backend": dist.get_backend()}
+    return JsonlLogger(args.metrics if rank == 0 else None, **common)
+
+
+class _Rank0Checkpointer:
+    """The checkpointer render_progressive writes to in a process group:
+    every rank calls save at the same batches (with --sharded each with its
+    block of rows, assembled by gather_image); rank 0 alone writes."""
+
+    def __init__(self, ckpt, sharded: bool, device):
+        self.ckpt, self.sharded, self.device = ckpt, sharded, device
+
+    def save(self, image, batch, extra=None, meta=None):
+        import torch
+
+        from dpt_tpu_torch.dist.sharding import gather_image, world
+
+        if self.sharded:
+            image = gather_image(torch.as_tensor(
+                image, device=self.device)).cpu().numpy()
+        if world()[0] == 0:
+            self.ckpt.save(image, batch, extra=extra, meta=meta)
 
 
 def _checkpoint_meta(args, orbit, cfg, setup=()):
@@ -288,13 +346,22 @@ def _checkpoint_meta(args, orbit, cfg, setup=()):
 def cmd_render(args, parser):
     """Render, write the image and one metrics line per batch, resuming
     from and writing `--checkpoint`; returns the image [H, W, 3] on the
-    render device."""
+    render device (on every rank of a multi-process run)."""
+    import torch
+
+    from dpt_tpu_torch.dist.sharding import (
+        broadcast,
+        gather_image,
+        rank_rows,
+        render_sample_sharded,
+        world,
+    )
     from dpt_tpu_torch.render.renderer import render_progressive
     from dpt_tpu_torch.utils.checkpoint import Checkpointer, meta_matches
     from dpt_tpu_torch.utils.io import save_image
-    from dpt_tpu_torch.utils.metrics import JsonlLogger
 
     device, cfg, scene, orbit, camera, accel = _setup(args, parser)
+    rank, size = world()
     # Resuming under another framing would blend two accumulations; a
     # mismatch resets instead, as a camera change does
     # (VulkanRayTracer.cpp:739-754).
@@ -307,28 +374,54 @@ def cmd_render(args, parser):
         if meta_matches(aux["meta"], meta["camera_state"],
                         meta["config_key"]):
             start_image, start_batch = image_l, batch_l
-            print(f"resuming from batch {start_batch}", file=sys.stderr)
         else:
             print("checkpoint framing mismatch (camera/config changed): "
                   "resetting accumulation", file=sys.stderr)
+    if size > 1:
+        # Every rank resumes from rank 0's checkpoint: a rank without the
+        # file would otherwise start at batch 0 and run another number of
+        # batches than the others.
+        image0 = torch.zeros((cfg.height, cfg.width, 3), device=device)
+        if start_image is not None:
+            image0 = torch.as_tensor(start_image, device=device)
+        b, image0 = broadcast([torch.tensor([start_batch], device=device),
+                               image0])
+        start_batch = int(b)
+        start_image = image0 if start_batch else None
+    if start_batch:
+        print(f"resuming from batch {start_batch}", file=sys.stderr)
+    render_fn = None
+    if args.sharded:
+        render_fn = render_sample_sharded
+        if start_image is not None:
+            first, end = rank_rows(cfg, rank, size)
+            start_image = torch.as_tensor(start_image, device=device)[
+                first:end]
+    each_ckpt = ckpt
+    if ckpt is not None and size > 1:
+        each_ckpt = _Rank0Checkpointer(ckpt, args.sharded, device)
 
-    logger = JsonlLogger(args.metrics)
+    logger = _logger(args)
     try:
         def on_batch(b, img, metrics):
             logger.log(event="batch", batch=b, device=str(device), **metrics)
 
         img, n_done = render_progressive(
             scene, camera, cfg, accel=accel, n_batches=args.batches,
-            on_batch=on_batch, checkpointer=ckpt,
+            on_batch=on_batch, checkpointer=each_ckpt,
             checkpoint_every=args.checkpoint_every, checkpoint_meta=meta,
-            start_batch=start_batch, start_image=start_image)
+            start_batch=start_batch, start_image=start_image,
+            render_fn=render_fn)
     finally:
         logger.close()
-    full = img.cpu().numpy()
-    if ckpt is not None:
-        ckpt.save(full, n_done, meta=meta)
-    save_image(args.out, full, exposure=args.exposure)
-    print(f"wrote {args.out} ({n_done} batches)", file=sys.stderr)
+    if args.sharded:
+        img = gather_image(img)
+    if rank == 0:
+        full = img.cpu().numpy()
+        if ckpt is not None:
+            ckpt.save(full, n_done, meta=meta)
+        save_image(args.out, full, exposure=args.exposure)
+        print(f"wrote {args.out} ({n_done} batches)", file=sys.stderr)
     return img
 
 
@@ -346,8 +439,8 @@ def cmd_optimize(args, parser):
         optimize,
         save_state,
     )
+    from dpt_tpu_torch.dist.sharding import world
     from dpt_tpu_torch.utils.checkpoint import Checkpointer, meta_matches
-    from dpt_tpu_torch.utils.metrics import JsonlLogger
 
     device, cfg, scene, orbit, camera, accel = _setup(args, parser)
     if args.init_albedo is not None:
@@ -371,18 +464,22 @@ def cmd_optimize(args, parser):
     ckpt = Checkpointer(args.checkpoint) if args.checkpoint else None
     start_step, init_params, init_opt = 0, None, None
     loaded = ckpt.load() if ckpt is not None else None
+    params_t = split_params(scene, camera)
+    opt_t = initial_opt_state(args.optimizer, params_t, opt_keys)
     if loaded is not None and meta_matches(
             loaded[2]["meta"], meta["camera_state"], meta["config_key"]):
-        params_t = split_params(scene, camera)
-        restored = load_state(ckpt, params_t, initial_opt_state(
-            args.optimizer, params_t, opt_keys))
+        restored = load_state(ckpt, params_t, opt_t)
         if restored is not None:
             start_step, init_params, init_opt = restored
-            print(f"resuming from step {start_step}", file=sys.stderr)
     elif loaded is not None:
         print("checkpoint setup mismatch: starting fresh", file=sys.stderr)
+    if world()[1] > 1:
+        start_step, init_params, init_opt = _broadcast_opt_state(
+            start_step, init_params or params_t, init_opt or opt_t, device)
+    if start_step:
+        print(f"resuming from step {start_step}", file=sys.stderr)
 
-    logger = JsonlLogger(args.metrics)
+    logger = _logger(args)
     try:
         def on_step(step, loss, metrics):
             logger.log(event="opt_step", step=step, loss=loss,
@@ -393,7 +490,7 @@ def cmd_optimize(args, parser):
             steps=max(args.steps, start_step), lr=args.lr,
             optimizer=args.optimizer, opt_params=opt_keys,
             micro_steps=args.micro_steps, accel=accel,
-            backward=args.backward, checkpointer=ckpt,
+            backward=args.backward, sharded=args.sharded, checkpointer=ckpt,
             checkpoint_every=args.checkpoint_every, checkpoint_meta=meta,
             on_step=on_step, init_params=init_params,
             init_opt_state=init_opt, start_step=start_step,
@@ -404,11 +501,30 @@ def cmd_optimize(args, parser):
     if ckpt is not None:
         save_state(ckpt, max(args.steps, start_step), params, opt_state,
                    meta=meta)
-    np.savez(args.out, **{k: v.detach().cpu().numpy()
-                          for k, v in params.items()})
-    print(f"wrote {args.out} (final loss "
-          f"{losses[-1] if losses else float('nan'):.6g})", file=sys.stderr)
+    if world()[0] == 0:
+        np.savez(args.out, **{k: v.detach().cpu().numpy()
+                              for k, v in params.items()})
+        print(f"wrote {args.out} (final loss "
+              f"{losses[-1] if losses else float('nan'):.6g})",
+              file=sys.stderr)
     return params, losses
+
+
+def _broadcast_opt_state(start_step, params, opt_state, device):
+    """Rank 0's (start_step, params, optimizer state) on every rank.  The
+    JAX package reads the checkpoint on each process, so a process without
+    the file starts at step 0 while the others resume, and the job hangs in
+    mismatched collectives; here every rank takes rank 0's."""
+    import torch
+
+    from dpt_tpu_torch.dist.sharding import broadcast
+    from dpt_tpu_torch.utils.checkpoint import flatten, unflatten
+
+    tree = {"params": params, "opt_state": opt_state}
+    leaves = broadcast([torch.tensor([start_step], device=device)]
+                       + flatten(tree))
+    out = unflatten(tree, leaves[1:], device)
+    return int(leaves[0]), out["params"], out["opt_state"]
 
 
 def _interactive_cfg(args):

@@ -3,20 +3,12 @@
 Counterpart of `dpt_tpu/config.py`: the same frozen dataclass, field for
 field, and the same five presets, so a configuration round-trips between the
 two packages.  Fields that only steer TPU execution (`packet_tile`,
-`interleave`) are accepted and have no effect here.  Options whose code path
-is not ported yet raise `NotImplementedError` naming the ROADMAP item.
+`interleave`, `traversal_chunk`) are accepted and have no effect here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-
-# traversal value -> the ROADMAP item that ports it.
-_UNPORTED_TRAVERSALS = {
-    "bvh": "ROADMAP Queue 1 item 6 (LBVH and the other traversals)",
-    "packet": "ROADMAP Queue 1 item 6 (LBVH and the other traversals)",
-    "threaded": "ROADMAP Queue 1 item 6 (LBVH and the other traversals)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,11 +58,15 @@ class RenderConfig:
     # 'brute' : test all triangles per ray (oracle, small scenes)
     # 'quad'  : 4-wide BVH walk (the flagship path; CUDA kernel K1)
     # 'pallas': paired-children binary BVH walk (CUDA kernel K2)
-    # 'bvh', 'packet', 'threaded' : not ported yet (raise).
+    # 'bvh', 'packet', 'threaded' : the per-ray stack walk in torch ops
+    #           (accel/traverse.py; the JAX package's three TPU strategies
+    #           of one function, mapped onto one walk)
     traversal: str = "brute"
-    # Rays per traversal chunk for 'threaded' (not ported; kept for parity).
+    # Rays per traversal chunk of the JAX package's 'threaded' walk:
+    # accepted, no effect here.
     traversal_chunk: int = 128 * 1024
-    # BVH builder: 'median' or 'sah' (host numpy builds).
+    # BVH builder: 'median' or 'sah' (host numpy builds) or 'lbvh' (built
+    # with torch ops on the scene's device, accel/lbvh.py).
     bvh_builder: str = "median"
     bvh_stack_depth: int = 64  # reference uses 32 (raytrace_comp.comp:162)
     bvh_leaf_size: int = 4  # triangles per leaf (reference: 1)
@@ -85,7 +81,9 @@ class RenderConfig:
     # Coherence-sort every traversal query stream after the primary by
     # (active, direction octant, origin Morton) (render/compaction.py).
     ray_sort: bool = False
-    # Carry-level wavefront sorting (not ported yet: ROADMAP Queue 1 item 5).
+    # Carry-level wavefront sort: once per bounce, after its nearest query,
+    # the whole carry is permuted by the Morton code of the hit position
+    # (render/integrator.py); it replaces the per-query sort of ray_sort.
     wavefront_sort: bool = False
     # Carry compaction after the primary trace: the bounce loop runs only on
     # the lanes whose primary ray hit.  Any value > 0 turns it on (the port
@@ -101,16 +99,6 @@ class RenderConfig:
     playback_remat_bounces: bool = True
 
     def __post_init__(self):
-        if self.traversal in _UNPORTED_TRAVERSALS:
-            raise NotImplementedError(
-                f"traversal={self.traversal!r} is not ported yet: "
-                f"{_UNPORTED_TRAVERSALS[self.traversal]}"
-            )
-        if self.wavefront_sort:
-            raise NotImplementedError(
-                "wavefront_sort=True is not ported yet: ROADMAP Queue 1 "
-                "item 5 (carry-level wavefront sort)"
-            )
         if self.kernels not in ("none", "intersect"):
             raise ValueError(
                 f"unknown kernels={self.kernels!r}: 'none' or 'intersect'")

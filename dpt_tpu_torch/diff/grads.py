@@ -15,7 +15,9 @@ fixed-hit detach convention (render/integrator.py) and all returning
 
 The RNG is a counter in the ray state, so every re-render sees the same
 samples: the three give the same loss and the same gradients up to
-rounding.
+rounding.  With `pixels=(px, py)` each renders only those rows and takes
+their squared error summed over the whole frame's H*W*3 elements: one
+rank's share of the frame's loss (dist/sharding.py sums the shares).
 """
 
 from __future__ import annotations
@@ -95,10 +97,14 @@ def differentiable_render(scene, camera, cfg: RenderConfig, sample_batch=0,
     return f, params
 
 
-def _loss_of_img(loss: str, img, target):
-    if loss == "l2":
+def _loss_of_img(loss: str, img, target, cfg=None, pixels=None):
+    """The loss of a whole frame; of a block of rows (`pixels`), its share:
+    the squared error summed and divided by the frame's H*W*3."""
+    if loss != "l2":
+        raise ValueError(f"unknown loss: {loss!r}")
+    if pixels is None:
         return torch.mean((img - target) ** 2)
-    raise ValueError(f"unknown loss: {loss!r}")
+    return ((img - target) ** 2).sum() / (cfg.n_pixels * 3)
 
 
 def _leaves(scene, camera):
@@ -126,13 +132,14 @@ def _grad_of(loss_fn, g, target, params, needs_target):
 
 
 def render_loss_and_grads(scene, camera, cfg: RenderConfig, target,
-                          sample_batch=0, accel=None, loss="l2"):
+                          sample_batch=0, accel=None, loss="l2",
+                          pixels=None):
     """Loss against `target` and its gradients by plain autograd through
     `render_sample`.  Returns (loss 0-d tensor, {key: grad})."""
     params = _leaves(scene, camera)
     s, c = merge_params(dict(zip(PARAM_KEYS, params)), scene, camera)
-    value = _loss_of_img(loss, render_sample(s, c, cfg, sample_batch, accel),
-                         target)
+    value = _loss_of_img(loss, render_sample(s, c, cfg, sample_batch, accel,
+                                             pixels), target, cfg, pixels)
     grads = torch.autograd.grad(value, params, allow_unused=True)
     return value.detach(), _grads_dict(params, grads)
 
@@ -181,14 +188,16 @@ def _merged(scene, camera, params):
 
 
 def replay_loss_and_grads(scene, camera, cfg: RenderConfig, target,
-                          sample_batch=0, accel=None, loss="l2"):
+                          sample_batch=0, accel=None, loss="l2",
+                          pixels=None):
     """Replay backward: the forward keeps no activations at all, the
     backward re-renders under autograd.  Returns (loss, {key: grad})."""
 
     def loss_fn(params, t):
         s, c = _merged(scene, camera, params)
         return _loss_of_img(loss, render_sample(s, c, cfg, sample_batch,
-                                                accel), t)
+                                                accel, pixels), t, cfg,
+                            pixels)
 
     params = _leaves(scene, camera)
     value = _Replay.apply(loss_fn, target, *params)
@@ -197,7 +206,7 @@ def replay_loss_and_grads(scene, camera, cfg: RenderConfig, target,
 
 
 def tape_loss_and_grads(scene, camera, cfg: RenderConfig, target,
-                        sample_batch=0, accel=None, loss="l2"):
+                        sample_batch=0, accel=None, loss="l2", pixels=None):
     """Tape backward: the forward records every traversal outcome
     (integrator.QueryTape) and the backward differentiates the playback
     render, so no traversal kernel and no per-query sort runs in the
@@ -206,13 +215,14 @@ def tape_loss_and_grads(scene, camera, cfg: RenderConfig, target,
 
     def record_fn(params, t):
         s, c = _merged(scene, camera, params)
-        img, tapes = render_sample_taped(s, c, cfg, sample_batch, accel)
-        return _loss_of_img(loss, img, t), tapes
+        img, tapes = render_sample_taped(s, c, cfg, sample_batch, accel,
+                                         pixels)
+        return _loss_of_img(loss, img, t, cfg, pixels), tapes
 
     def play_fn(params, t, tapes):
         s, c = _merged(scene, camera, params)
         return _loss_of_img(loss, render_sample_playback(
-            s, c, cfg, sample_batch, tapes), t)
+            s, c, cfg, sample_batch, tapes, pixels), t, cfg, pixels)
 
     params = _leaves(scene, camera)
     value = _Tape.apply(record_fn, play_fn, target, *params)

@@ -14,7 +14,11 @@ Counterpart of `dpt_tpu/diff/optimize.py`.  Per optimisation step:
      utils/checkpoint.Checkpointer.
 
 The backward is the tape (`diff/grads.tape_loss_and_grads`) by default, or
-the replay.  torch's Adam places eps as optax's does in exact arithmetic
+the replay.  With `sharded=True` the frame's rows are split over the ranks
+of the process group (dist/sharding.py): each rank renders and
+differentiates its rows, the loss and gradients are all-reduced before the
+update, so every rank takes the same step, and rank 0 alone writes the
+checkpoint.  torch's Adam places eps as optax's does in exact arithmetic
 (m_hat / (sqrt(v_hat) + eps)) but rounds in another order, so a run agrees
 with the JAX package's `optimize` to allclose, not bit for bit.
 """
@@ -98,6 +102,7 @@ def optimize(
     micro_steps: int = 1,
     accel=None,
     backward: str = "tape",
+    sharded: bool = False,
     checkpointer=None,
     checkpoint_every: int = 0,
     checkpoint_meta: Optional[dict] = None,
@@ -138,7 +143,14 @@ def optimize(
              else initial_opt_state(optimizer, params, opt_keys))
     for k in opt_keys:
         opt.state[params[k]] = {n: v.clone() for n, v in state[k].items()}
-    lg = tape_loss_and_grads if backward == "tape" else replay_loss_and_grads
+    if sharded:
+        from dpt_tpu_torch.dist import sharding
+
+        lg = (sharding.sharded_tape_loss_and_grads if backward == "tape"
+              else sharding.sharded_replay_loss_and_grads)
+    else:
+        lg = (tape_loss_and_grads if backward == "tape"
+              else replay_loss_and_grads)
 
     losses = []
     for step in range(start_step, steps):
@@ -182,7 +194,11 @@ def _opt_state(opt, params, opt_keys) -> dict:
 
 def save_state(checkpointer, step: int, params, opt_state, meta=None):
     """Persist (step, params, optimizer state) as the checkpoint's extra
-    leaves."""
+    leaves.  In a process group only rank 0 writes."""
+    from dpt_tpu_torch.dist.sharding import world
+
+    if world()[0] != 0:
+        return
     extra = {"params": params, "opt_state": opt_state}
     checkpointer.save(np.zeros((0,), np.float32), step, extra=extra,
                       meta=meta)

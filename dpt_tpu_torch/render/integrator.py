@@ -37,6 +37,16 @@ plays the render back without a single traversal or per-query sort.  The
 playback recomputes `n_live` and the compaction permutation from the taped
 primary (`hit`, `t`), so its bounces run on the same lanes in the same
 order as the recording.
+
+Wavefront sort (cfg.wavefront_sort): in every bounce, after its nearest
+query and before the NEE / SSS / bounce-direction phase, the whole carry
+is permuted once by the Morton code of the hit position (misses last; one
+stable argsort), and scattered back to carry order after the bounce.  The
+seven queries of the phase leave the hit position, so one permutation
+serves all of them, and the per-query coherence sort is off.  A pure
+permutation of lanes: the image is the unsorted render's bit for bit.  The
+tape records each bounce's nearest `t` as well, so a playback sorts by the
+same keys.
 """
 
 from __future__ import annotations
@@ -69,8 +79,10 @@ class QueryTape:
 
     A nearest outcome is stored as one int32 per lane (the triangle where
     hit, else -1); playback decodes a miss to tri 0, which every consumer
-    masks, and carries t = 0, which reintersect re-derives.  The primary
-    trace, whose `t` the compaction needs, is taped by `trace_paths`.
+    masks, and carries t = 0, which reintersect re-derives.  A call with
+    with_t=True (the wavefront sort's key reads t) stores {"tri1", "t"}
+    and plays t back.  The primary trace, whose `t` the compaction needs,
+    is taped by `trace_paths`.
     """
 
     def __init__(self, mode: str, entries=None):
@@ -85,15 +97,18 @@ class QueryTape:
         self._i += 1
         return e
 
-    def nearest(self, fn, o, d):
+    def nearest(self, fn, o, d, with_t: bool = False):
         if self.mode == "play":
-            tri1 = self._next()
-            return {"hit": tri1 >= 0, "tri": tri1.clamp(min=0),
-                    "t": torch.zeros(tri1.shape, dtype=torch.float32,
-                                     device=tri1.device)}
+            e = self._next()
+            tri1 = e["tri1"] if with_t else e
+            t = e["t"] if with_t else torch.zeros(
+                tri1.shape, dtype=torch.float32, device=tri1.device)
+            return {"hit": tri1 >= 0, "tri": tri1.clamp(min=0), "t": t}
         rec = fn(o, d)
         if self.mode == "record":
-            self.entries.append(_tri_or_miss(rec))
+            tri1 = _tri_or_miss(rec)
+            self.entries.append({"tri1": tri1, "t": rec["t"]} if with_t
+                                else tri1)
         return rec
 
     def occluded(self, fn, o, d, max_dist):
@@ -320,6 +335,36 @@ def make_bounce_body(scene, nearest, occluded, cfg: RenderConfig):
     return body
 
 
+def _wavefront_sorted(body, nearest, scene):
+    """`body` with the carry-level wavefront sort around its shade phase
+    (module docstring): the bounce's nearest query in carry order, one
+    stable argsort of the hit positions' Morton codes (misses last), the
+    body on the permuted carry, and a scatter back to carry order."""
+    from dpt_tpu_torch.render.compaction import morton3d
+
+    verts = scene.vertices.detach()
+    bmin, bmax = verts.min(dim=0).values, verts.max(dim=0).values
+
+    def stage(carry, depth, found=None, tio=_TAPE_OFF):
+        o, d, _, _, active, _ = carry
+        if found is None:
+            found = tio.nearest(nearest, *_masked_query(o, d, active),
+                                with_t=True)
+        hit = found["hit"] & active
+        pos = o.detach() + found["t"][:, None] * d.detach()
+        key = torch.where(hit, morton3d(pos, bmin, bmax),
+                          torch.full_like(hit, MASK32, dtype=torch.int64))
+        q = torch.argsort(key, stable=True)
+        inner = tuple(x.index_select(0, q) for x in carry)
+        found_q = {k: v.index_select(0, q) for k, v in found.items()}
+        out = body(inner, depth, found=found_q, tio=tio)
+        # A pure permutation scatter: carry order exactly, gradients
+        # through the gather and the scatter.
+        return tuple(torch.zeros_like(x).index_copy(0, q, x) for x in out)
+
+    return stage
+
+
 def _checkpointed(fn, *args):
     """fn(*args) under torch.utils.checkpoint when autograd records: the
     backward recomputes it instead of keeping its activations.  The RNG is
@@ -422,6 +467,8 @@ def trace_paths(origin, direction, state, scene, nearest, cfg: RenderConfig,
         dv_value = radiance
 
     body = make_bounce_body(scene, nearest, occluded, cfg)
+    if cfg.wavefront_sort:
+        body = _wavefront_sorted(body, nearest, scene)
     carry = (origin, direction, throughput, radiance, active, state)
     tape_bounces = tape["bounces"] if play else None
 

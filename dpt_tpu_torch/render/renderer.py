@@ -7,9 +7,9 @@ checkpoints, and the `live_fraction_by_depth` / `auto_compact_frac`
 diagnostics).  The reference dispatches one 1-spp kernel per iteration and
 keeps a running average, resetting it when the camera moves
 (VulkanRayTracer.cpp:717-860, raytrace_comp.comp:467-469).  Everything runs
-on the device of the scene; the accel must live there too.
-
-Not ported yet: sharding (ROADMAP Queue 1 item 4).
+on the device of the scene; the accel must live there too.  The one-batch
+renders take `pixels=(px, py)` to render a block of whole rows only (the
+rank's rows of dist/sharding.py).
 """
 
 from __future__ import annotations
@@ -32,7 +32,18 @@ def _sub_batch(sample_batch, cfg: RenderConfig, s: int) -> int:
 
 
 def _image(acc, cfg: RenderConfig):
-    return (acc / float(cfg.spp)).reshape(cfg.height, cfg.width, 3)
+    """[rows, W, 3]: the whole frame, or the block of rows rendered."""
+    return (acc / float(cfg.spp)).reshape(-1, cfg.width, 3)
+
+
+def _n_rays(cfg: RenderConfig, pixels) -> int:
+    return cfg.n_pixels if pixels is None else pixels[0].numel()
+
+
+def _rays(camera, cfg: RenderConfig, sample_batch, s: int, pixels):
+    px, py = pixels if pixels is not None else (None, None)
+    return generate_rays(camera, cfg, _sub_batch(sample_batch, cfg, s),
+                         px, py)
 
 
 def _records_grad(scene, camera) -> bool:
@@ -43,10 +54,11 @@ def _records_grad(scene, camera) -> bool:
         t.requires_grad for obj in (scene, camera) for t in tensors(obj))
 
 
-def _accumulate_spp(one_spp, cfg: RenderConfig, device, records: bool):
+def _accumulate_spp(one_spp, cfg: RenderConfig, n_rays: int, device,
+                    records: bool):
     """Sum of one_spp(s) over the sub-samples, each rematerialised in the
     backward under cfg.remat_bounces when autograd records."""
-    acc = torch.zeros((cfg.n_pixels, 3), dtype=torch.float32, device=device)
+    acc = torch.zeros((n_rays, 3), dtype=torch.float32, device=device)
     with torch.set_grad_enabled(records):
         for s in range(cfg.spp):
             acc = acc + (_checkpointed(one_spp, s) if cfg.remat_bounces
@@ -54,8 +66,11 @@ def _accumulate_spp(one_spp, cfg: RenderConfig, device, records: bool):
     return acc
 
 
-def render_sample(scene, camera, cfg: RenderConfig, sample_batch, accel=None):
-    """One sample batch: cfg.spp sub-samples averaged → image [H, W, 3].
+def render_sample(scene, camera, cfg: RenderConfig, sample_batch, accel=None,
+                  pixels=None):
+    """One sample batch: cfg.spp sub-samples averaged → image [H, W, 3]
+    (with `pixels`, the [rows, W, 3] block of those pixels, which must be
+    whole rows in raster order).
 
     Sub-sample s of batch b seeds pixels with batch index b*spp + s
     (uint32 wrap), mirroring the reference's per-dispatch seeding
@@ -67,29 +82,28 @@ def render_sample(scene, camera, cfg: RenderConfig, sample_batch, accel=None):
     occluded = make_occluded(scene, cfg, accel)
 
     def one_spp(s):
-        origin, direction, state = generate_rays(
-            camera, cfg, _sub_batch(sample_batch, cfg, s))
+        origin, direction, state = _rays(camera, cfg, sample_batch, s, pixels)
         return trace_paths(origin, direction, state, scene, nearest, cfg,
                            occluded)
 
-    return _image(_accumulate_spp(one_spp, cfg, scene.device,
+    return _image(_accumulate_spp(one_spp, cfg, _n_rays(cfg, pixels),
+                                  scene.device,
                                   _records_grad(scene, camera)), cfg)
 
 
 @torch.no_grad()
 def render_sample_taped(scene, camera, cfg: RenderConfig, sample_batch,
-                        accel=None):
+                        accel=None, pixels=None):
     """`render_sample` that also returns the query tape: one recorded tape
     per sub-sample, in order.  Runs under no_grad: it is the forward of the
     tape backward and is never differentiated itself."""
     nearest = make_nearest(scene, cfg, accel)
     occluded = make_occluded(scene, cfg, accel)
-    acc = torch.zeros((cfg.n_pixels, 3), dtype=torch.float32,
+    acc = torch.zeros((_n_rays(cfg, pixels), 3), dtype=torch.float32,
                       device=scene.device)
     tapes = []
     for s in range(cfg.spp):
-        origin, direction, state = generate_rays(
-            camera, cfg, _sub_batch(sample_batch, cfg, s))
+        origin, direction, state = _rays(camera, cfg, sample_batch, s, pixels)
         radiance, tape = trace_paths(origin, direction, state, scene,
                                      nearest, cfg, occluded, tape="record")
         acc = acc + radiance
@@ -98,7 +112,7 @@ def render_sample_taped(scene, camera, cfg: RenderConfig, sample_batch,
 
 
 def render_sample_playback(scene, camera, cfg: RenderConfig, sample_batch,
-                           tapes):
+                           tapes, pixels=None):
     """Play a recorded render back: every traversal outcome comes from
     `tapes` (render_sample_taped), so no accel is needed and no traversal
     kernel or per-query sort runs.  The same image as `render_sample`, and
@@ -110,12 +124,12 @@ def render_sample_playback(scene, camera, cfg: RenderConfig, sample_batch,
         remat_bounces=cfg.remat_bounces and cfg.playback_remat_bounces)
 
     def one_spp(s):
-        origin, direction, state = generate_rays(
-            camera, cfg, _sub_batch(sample_batch, cfg, s))
+        origin, direction, state = _rays(camera, cfg, sample_batch, s, pixels)
         return trace_paths(origin, direction, state, scene, None, cfg_b,
                            None, tape=tapes[s])
 
-    return _image(_accumulate_spp(one_spp, cfg, scene.device,
+    return _image(_accumulate_spp(one_spp, cfg, _n_rays(cfg, pixels),
+                                  scene.device,
                                   _records_grad(scene, camera)), cfg)
 
 
@@ -183,8 +197,10 @@ def render_progressive(
     `checkpointer` and `checkpoint_every` > 0 the accumulation is saved
     after every checkpoint_every-th batch, with `checkpoint_meta`.
     render_fn(scene, camera, cfg, batch, accel) -> image replaces
-    `render_sample`.  A resume passes `start_batch` and `start_image` (an
-    array or tensor).  Returns (image, batches_accumulated).
+    `render_sample`; the accumulation takes the shape of what it returns
+    (a rank's block of rows under dist/sharding.py).  A resume passes
+    `start_batch` and `start_image` (an array or tensor).  Returns (image,
+    batches_accumulated).
 
     Dispatch is pipelined as in the JAX package: batch b+1 is queued
     before the host waits on batch b's CUDA event and publishes b
@@ -204,13 +220,9 @@ def render_progressive(
         render_fn = render_sample
     n = cfg.sample_batches if n_batches is None else n_batches
     dev = scene.device
-    if start_image is not None:
-        img = torch.as_tensor(start_image, dtype=torch.float32, device=dev)
-    else:
-        img = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
-                          device=dev)
-    rays = cfg.n_pixels * cfg.spp * traversals_per_sample(
-        cfg, scene.lights.count)
+    img = (torch.as_tensor(start_image, dtype=torch.float32, device=dev)
+           if start_image is not None else None)  # zeros of the first batch
+    rays_per_px = cfg.spp * traversals_per_sample(cfg, scene.lights.count)
     batch = start_batch
     prev_cam_state = None
     pending = None  # (batch index, image after it, start mark, end mark)
@@ -223,7 +235,7 @@ def render_progressive(
         if on_batch is not None:
             on_batch(b, pimg, {
                 "batch_ms": dt * 1e3,
-                "rays_per_s": rays / dt,
+                "rays_per_s": rays_per_px * pimg[..., 0].numel() / dt,
                 "batches_done": b + 1,
             })
         if checkpointer is not None and checkpoint_every and (
@@ -240,7 +252,7 @@ def render_progressive(
                 if pending is not None:
                     publish(pending)
                     pending = None
-                img = torch.zeros_like(img)
+                img = None
                 batch = 0
             prev_cam_state = cam_state
         else:
@@ -249,6 +261,8 @@ def render_progressive(
         start = _mark(dev) if last_mark is None else last_mark
         with torch.profiler.record_function("render_batch"):
             sample = render_fn(scene, camera, cfg, batch, accel)
+            if img is None:
+                img = torch.zeros_like(sample)
             img = accumulate(img, sample, batch, cfg)
         last_mark = _mark(dev)
         if pending is not None:
@@ -257,6 +271,9 @@ def render_progressive(
         batch += 1
     if pending is not None:
         publish(pending)
+    if img is None:
+        img = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
+                          device=dev)
     return img, batch
 
 

@@ -1,14 +1,16 @@
 """Nearest-hit and any-hit search dispatch: brute force or a BVH walk.
 
-Counterpart of `dpt_tpu/render/trace.py` for the `brute` (plain, or K3
-with `kernels="intersect"`), `quad` (K1) and `pallas` (K2) traversals.
-`make_nearest(scene, cfg, accel)` returns
+Counterpart of `dpt_tpu/render/trace.py`: the `brute` (plain, or K3 with
+`kernels="intersect"`), `quad` (K1), `pallas` (K2) traversals, and `bvh`,
+`packet` and `threaded`, which all take the per-ray stack walk in torch
+ops (accel/traverse.py).  `make_nearest(scene, cfg, accel)` returns
 ``nearest(origin, direction) -> {"hit", "t", "tri"}``; `make_occluded`
 returns ``occluded(origin, direction, max_dist) -> [R] bool``.  The search
 only decides which triangle, so every output is detached; continuous
 quantities are recomputed by intersect.reintersect.  With cfg.ray_sort the
 BVH queries are wrapped in the coherence sort (render/compaction.py), as in
-the JAX package; the brute path is never sorted.
+the JAX package, unless cfg.wavefront_sort sorts the whole carry once per
+bounce instead (render/integrator.py); the brute path is never sorted.
 """
 
 from __future__ import annotations
@@ -25,10 +27,14 @@ def _scene_bounds(scene):
     return v.min(dim=0).values, v.max(dim=0).values
 
 
-def _walks(cfg, accel):
-    """(nearest, occluded) of the BVH walk cfg.traversal selects."""
-    if cfg.traversal not in ("quad", "pallas"):
-        # RenderConfig already rejects the known traversals not ported yet.
+def _detached_corners(scene):
+    return tuple(v.detach() for v in scene.tri_vertices())
+
+
+def _walks(scene, cfg, accel):
+    """(nearest, occluded) of the BVH walk cfg.traversal selects, as
+    nearest(o, d, accel, cfg) / occluded(o, d, max_dist, accel, cfg)."""
+    if cfg.traversal not in ("quad", "pallas", "bvh", "packet", "threaded"):
         raise ValueError(f"unknown traversal mode: {cfg.traversal}")
     if accel is None:
         raise ValueError(f"traversal={cfg.traversal!r} requires an accel "
@@ -37,13 +43,25 @@ def _walks(cfg, accel):
         from dpt_tpu_torch.kernels.quad import quad_nearest, quad_occluded
 
         return quad_nearest, quad_occluded
-    from dpt_tpu_torch.kernels.wide import wide_nearest, wide_occluded
+    if cfg.traversal == "pallas":
+        from dpt_tpu_torch.kernels.wide import wide_nearest, wide_occluded
 
-    return wide_nearest, wide_occluded
+        return wide_nearest, wide_occluded
+    from dpt_tpu_torch.accel.traverse import bvh_nearest, bvh_occluded
+
+    corners = _detached_corners(scene)
+
+    def nearest(o, d, bvh, cfg):
+        return bvh_nearest(o, d, bvh, *corners, cfg)
+
+    def occluded(o, d, max_dist, bvh, cfg):
+        return bvh_occluded(o, d, max_dist, bvh, *corners, cfg)
+
+    return nearest, occluded
 
 
-def _detached_corners(scene):
-    return tuple(v.detach() for v in scene.tri_vertices())
+def _per_query_sort(cfg) -> bool:
+    return cfg.ray_sort and not cfg.wavefront_sort
 
 
 def make_nearest(scene, cfg: RenderConfig, accel=None):
@@ -71,13 +89,13 @@ def make_nearest(scene, cfg: RenderConfig, accel=None):
 
         return nearest
 
-    walk, _ = _walks(cfg, accel)
+    walk, _ = _walks(scene, cfg, accel)
 
     def nearest(o, d):
         hit, t, tri = walk(o.detach(), d.detach(), accel, cfg)
         return {"hit": hit, "t": t, "tri": tri}
 
-    if not cfg.ray_sort:
+    if not _per_query_sort(cfg):
         return nearest
     from dpt_tpu_torch.render.compaction import sorted_nearest
 
@@ -99,12 +117,12 @@ def make_occluded(scene, cfg: RenderConfig, accel=None):
 
         return occluded
 
-    _, walk = _walks(cfg, accel)
+    _, walk = _walks(scene, cfg, accel)
 
     def occluded(o, d, max_dist):
         return walk(o.detach(), d.detach(), max_dist.detach(), accel, cfg)
 
-    if not cfg.ray_sort:
+    if not _per_query_sort(cfg):
         return occluded
     from dpt_tpu_torch.render.compaction import sorted_occluded
 

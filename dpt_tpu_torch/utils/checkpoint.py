@@ -30,8 +30,9 @@ def flatten(tree) -> list:
 
 
 def unflatten(template, leaves, device):
-    """The nested dict shaped like `template` with `leaves` (numpy arrays)
-    as float/int tensors on `device`; the inverse of `flatten`."""
+    """The nested dict shaped like `template` with `leaves` (numpy arrays
+    or tensors) as tensors on the template leaf's device (else `device`);
+    the inverse of `flatten`."""
     it = iter(leaves)
 
     def build(t):
@@ -39,6 +40,8 @@ def unflatten(template, leaves, device):
             return {k: build(t[k]) for k in sorted(t)}
         a = next(it)
         dev = t.device if isinstance(t, torch.Tensor) else device
+        if isinstance(a, torch.Tensor):
+            return a.to(dev)
         return torch.as_tensor(np.array(a), device=dev)
 
     out = build(template)

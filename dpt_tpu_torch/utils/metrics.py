@@ -44,13 +44,16 @@ def effective_traversals_per_sample(cfg, n_lights: int, live_in) -> float:
 
 
 class JsonlLogger:
-    """Append-only JSONL metrics sink (stdout by default)."""
+    """Append-only JSONL metrics sink (stdout by default); `common` fields
+    lead every row."""
 
-    def __init__(self, path=None):
+    def __init__(self, path=None, **common):
         self._f = open(path, "a") if path else sys.stdout
         self._owns = path is not None
+        self._common = common
 
     def log(self, **fields):
+        fields = {**self._common, **fields}
         fields.setdefault("ts", time.time())
         self._f.write(json.dumps(fields) + "\n")
         self._f.flush()

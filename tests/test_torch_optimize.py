@@ -258,16 +258,21 @@ def test_cli_optimize_cpu_end_to_end(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--sharded"], ["--coordinator", "h:1"], ["--num-processes", "2"],
+    (["--sharded", "--process-id", "0"], "need --num-processes"),
+    (["--coordinator", "h:1"], "need --num-processes"),
+    (["--num-processes", "2"], "needs --coordinator"),
 ])
 def test_cli_optimize_unported_options_exit(tmp_path, flag, capsys):
+    """The multi-process options are ported; an incomplete set of them
+    exits before any step, naming what is missing."""
+    flag, message = flag
     tgt = tmp_path / "t.npy"
     np.save(tgt, np.zeros((8, 8, 3), np.float32))
     with pytest.raises(SystemExit) as e:
         cli.main(["optimize", "--device", "cpu", "--width", "8", "--height",
                   "8", "--target", str(tgt), *flag])
     assert e.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
 
 
 def test_params_converter_round_trip(box):

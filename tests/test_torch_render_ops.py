@@ -275,3 +275,60 @@ def test_shading_matches(jx):
     _close(jx.shading.interpolate_uv(jx.jnp.asarray(corners),
                                      jx.jnp.asarray(uu), jx.jnp.asarray(vv)),
            tsh.interpolate_uv(_t(corners), _t(uu), _t(vv)))
+
+
+def _wavefront_inputs(traversal):
+    """(scene, camera, cfg, accel): the box through the per-ray walk (the
+    JAX package's tests/test_compaction.py framing) or the sphere through
+    the quad walk, with SSS and Russian roulette."""
+    from dpt_tpu_torch.accel.bvh import build_accel
+
+    if traversal == "bvh":
+        scene = T.cornell_box_scene(device="cpu")
+        cfg = T.RenderConfig(width=16, height=16, max_depth=3, spp=1,
+                             traversal="bvh", bvh_leaf_size=2,
+                             enable_sss=True, russian_roulette=True)
+    else:
+        scene = T.procedural_scene(n_tris_target=600, device="cpu")
+        cfg = T.preset("sylveon512", width=16, height=16, max_depth=3,
+                       ray_sort=False, russian_roulette=True,
+                       rr_start_depth=1)
+    return scene, T.OrbitCamera().camera("cpu"), cfg, build_accel(scene, cfg)
+
+
+@pytest.mark.parametrize("ray_sort", [False, True])
+@pytest.mark.parametrize("traversal", ["bvh", "quad"])
+def test_wavefront_render_bit_identical(traversal, ray_sort):
+    """The carry-level wavefront sort is a pure permutation of lanes: the
+    image is the unsorted render's bit for bit, and with ray_sort too (the
+    per-query sort is then off, not applied twice)."""
+    scene, cam, cfg, accel = _wavefront_inputs(traversal)
+    cfg = cfg.replace(ray_sort=ray_sort)
+    ref = T.render_sample(scene, cam, cfg, 0, accel)
+    got = T.render_sample(scene, cam, cfg.replace(wavefront_sort=True), 0,
+                          accel)
+    assert float(ref.max()) > 0.0
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("backward", ["plain", "tape"])
+def test_wavefront_grads_identical(backward):
+    """A permutation's gather and scatter transpose to a collision-free
+    scatter and gather: gradients with the wavefront sort equal those
+    without (rtol 1e-6, tests/test_compaction.py); the tape records each
+    bounce's t, so its playback sorts by the same keys."""
+    from dpt_tpu_torch.diff import grads as G
+
+    scene, cam, cfg, accel = _wavefront_inputs("quad")
+    cfg = cfg.replace(width=8, height=8)
+    fn = (G.render_loss_and_grads if backward == "plain"
+          else G.tape_loss_and_grads)
+    target = torch.full((8, 8, 3), 0.1)
+    loss0, g0 = fn(scene, cam, cfg, target, 0, accel)
+    loss1, g1 = fn(scene, cam, cfg.replace(wavefront_sort=True), target, 0,
+                   accel)
+    assert float(loss0) == float(loss1)
+    assert float(g0["albedo"].abs().max()) > 0.0
+    for k in G.PARAM_KEYS:
+        np.testing.assert_allclose(g1[k].numpy(), g0[k].numpy(), rtol=1e-6,
+                                   atol=0.0, err_msg=k)

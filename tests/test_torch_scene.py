@@ -66,18 +66,23 @@ def test_presets_equal(jx, name):
 
 
 @pytest.mark.parametrize("over", [
-    ({"traversal": "bvh"}, NotImplementedError, "ROADMAP"),
-    ({"traversal": "packet"}, NotImplementedError, "ROADMAP"),
-    ({"traversal": "threaded"}, NotImplementedError, "ROADMAP"),
-    ({"wavefront_sort": True}, NotImplementedError, "ROADMAP"),
+    ({"traversal": "bvh"}, None, None),
+    ({"traversal": "packet"}, None, None),
+    ({"traversal": "threaded"}, None, None),
+    ({"wavefront_sort": True}, None, None),
     ({"kernels": "pallas"}, ValueError, "'none' or 'intersect'"),
 ])
 def test_unported_options_raise(over):
-    """Options not ported yet name their ROADMAP item; a kernels value that
-    is no kernel path is refused (kernels="intersect" is ported)."""
+    """Every option of the JAX config is ported now: the traversals and the
+    wavefront sort construct; a kernels value that is no kernel path is
+    still refused (kernels="intersect" is ported)."""
     fields, exc, match = over
-    with pytest.raises(exc, match=match):
-        T.RenderConfig(**fields)
+    if exc is None:
+        cfg = T.RenderConfig(**fields)
+        assert all(getattr(cfg, k) == v for k, v in fields.items())
+    else:
+        with pytest.raises(exc, match=match):
+            T.RenderConfig(**fields)
     assert T.RenderConfig(kernels="intersect").kernels == "intersect"
 
 

@@ -141,15 +141,24 @@ def test_cli_render_cpu_writes_png(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--num-processes", "2"], ["--sharded"], ["--coordinator", "h:1"],
-    ["--wavefront-sort"], ["--process-id", "0"],
+    (["--num-processes", "2"], "needs --coordinator"),
+    (["--sharded", "--num-processes", "2", "--coordinator", "h:1"],
+     "needs --coordinator HOST:PORT and --process-id"),
+    (["--coordinator", "h:1"], "need --num-processes"),
+    (["--num-processes", "2", "--coordinator", "h:1", "--process-id", "2"],
+     "not in [0, 2)"),
+    (["--process-id", "0"], "need --num-processes"),
 ])
 def test_cli_unported_options_exit(tmp_path, flag, capsys):
+    """The multi-process options are ported; an incomplete or inconsistent
+    set of them exits before any rendering, naming what is missing."""
+    flag, message = flag
     with pytest.raises(SystemExit) as e:
         cli.main(["render", "--device", "cpu", "--out",
                   str(tmp_path / "x.png"), *flag])
     assert e.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
+    assert not (tmp_path / "x.png").exists()
 
 
 def test_cli_default_device_needs_a_card(tmp_path, capsys):
