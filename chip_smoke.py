@@ -2,7 +2,7 @@
 
     python chip_smoke.py
 
-Drives `dpt_tpu_torch` only (no JAX, no `dpt_tpu`), in sixteen phases, each
+Drives `dpt_tpu_torch` only (no JAX, no `dpt_tpu`), in nineteen phases, each
 printing one line or more:
 
   1. device   — a CUDA card of compute capability 9.0; prints
@@ -39,10 +39,13 @@ printing one line or more:
                 steps from albedo 0.4, first with `quad` (albedo and
                 vertices, refit every step), then with `pallas` (albedo and
                 light intensity).  Finite losses, the albedo moves toward
-                the target's (quad) and the loss falls (pallas); the walk is
-                launched 16 + 16 times in each taped forward and never in a
-                backward; refit_quad with unchanged vertices is pack_quad
-                bit for bit.  Prints step_ms and peak device memory.
+                the target's (quad) and the loss falls (pallas); each taped
+                forward launches the walk 1 + 15 (nearest) and 16
+                (occluded) times for each chunk of the static capacity its
+                tape ran (the vertices grow the sphere past one chunk), and
+                no backward launches it; refit_quad with unchanged vertices
+                is pack_quad bit for bit.  Prints step_ms and peak device
+                memory.
   8. grads    — tape_loss_and_grads at 64² on the card (kernels) against
                 the CPU (plain walks), quad and pallas: loss at rtol 1e-5,
                 every gradient at rtol 1e-3 / atol 1e-4 x max|g| (the CPU
@@ -90,6 +93,23 @@ printing one line or more:
  16. walks    — `bvh`, `packet` and `threaded` (the per-ray walk in torch
                 ops) render box512 at 64² on the card, allclose to brute at
                 rtol 1e-3, atol 2e-3.
+ 17. native   — the host runtime built by g++ (csrc/native_host.cpp): the
+                flagship's SAH and median trees (leaf 8) and the OBJ parse
+                of its mesh are the numpy builders' and the Python parser's
+                byte for byte, the native path is taken (its call counts),
+                and each is timed beside its numpy version.  Phase 5 also
+                asserts that the render's SAH build was native.
+ 18. capacity — the static-capacity compaction: the flagship at
+                compact_frac 0.125 (one live chunk of 131,072 lanes) and
+                0.0625 (two live chunks of 65,536), box512 at its 0.25 at
+                its own framing (one live chunk) and at radius 2.5 with 4
+                spp (every lane live: four chunks), each image equal to the
+                same render at compact_frac 0 bit for bit; K1 launched 16 +
+                16 and 31 + 32 times per batch; batch ms of each.
+ 19. syncs    — one flagship render_sample under
+                torch.cuda.set_sync_debug_mode("warn") at compact_frac
+                0.125 and at 0, the synchronising calls counted by
+                file:line; the compacted batch may not have more.
 
 Then one JSON line with the kernels (each with its design; for K1 and K2
 the primary stream's numbers, the other streams' under "_incoherent" and
@@ -124,8 +144,9 @@ torch.backends.cudnn.allow_tf32 = False
 FLAGSHIP_TRIS_TARGET = 66_000
 FLAGSHIP_TRIS = 65_024
 INCOHERENT_RAYS = 1 << 18
-# The rays of each flagship query after the primary: the primary hits of a
-# 1024² batch (12.08% of the pixels) that compaction keeps.
+# The live rays of each flagship query after the primary: the primary hits
+# of a 1024² batch (12.08% of the pixels), which compaction gathers into
+# its static capacity of 131,072 lanes (compact_frac 0.125).
 BOUNCE_RAYS = 126_621
 TIMED_CALLS = 5
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
@@ -284,7 +305,9 @@ def kernel_device_ms(fns, inputs, kernel, windows=3):
     alone, without its wrapper's host work.  The profiler may miss
     launches at the start of its window: a first kernel opens it, the mean
     is over the launches it saw, and a window that saw none of a design's
-    is taken again, up to `windows` times."""
+    is taken again, up to `windows` times.  If every window missed a design
+    (the profiler has dropped all of a kernel's launches on the card), the
+    calls are timed with CUDA events instead: events_device_ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -307,8 +330,31 @@ def kernel_device_ms(fns, inputs, kernel, windows=3):
         seen = {d: len(ts) for d, ts in times.items()}
         if all(0 < n <= len(inputs) for n in seen.values()):
             return {d: statistics.fmean(ts) for d, ts in times.items()}
-    raise SmokeFailure(f"profiler saw {seen} launches of {kernel} in "
-                       f"{windows} windows of {len(inputs)} calls")
+    print(f"[timing] profiler saw {seen} launches of {kernel} in {windows} "
+          f"windows of {len(inputs)} calls; timed with CUDA events instead",
+          flush=True)
+    return events_device_ms(fns, inputs)
+
+
+def events_device_ms(fns, inputs, sleep_cycles=50_000_000):
+    """Mean device time of one call per design, from CUDA events around
+    every input's call queued behind a sleep kernel (~25 ms), so the host
+    has queued them all before the device reaches the first: the span is
+    device work alone, the kernel and its wrapper's output fills."""
+    out = {}
+    for d, fn in fns.items():
+        fn(*inputs[0])
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        for args in inputs:
+            fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        out[d] = start.elapsed_time(end) / len(inputs)
+    return out
 
 
 def walk_module(kernel):
@@ -510,6 +556,7 @@ def phase_render(tmp):
         launch_counts,
         reset_launch_counts,
     )
+    from dpt_tpu_torch.utils import native
 
     png = os.path.join(tmp, "flagship.png")
     metrics = os.path.join(tmp, "flagship.jsonl")
@@ -518,10 +565,13 @@ def phase_render(tmp):
             "--procedural-tris", str(FLAGSHIP_TRIS_TARGET), "--width", "1024",
             "--height", "1024", "--batches", str(batches), "--out", png,
             "--metrics", metrics]
+    sah_builds = native.calls["build_bvh_sah"]
     reset_launch_counts()
     img = cli.main(argv)
     torch.cuda.synchronize()
     counts, designs = dict(launch_counts), dict(design_counts)
+    require(native.calls["build_bvh_sah"] == sah_builds + 1,
+            "the render's SAH build did not take the native path")
     require(img.is_cuda and tuple(img.shape) == (1024, 1024, 3),
             f"image {tuple(img.shape)} on {img.device}")
     require(bool(torch.isfinite(img).all()), "image has non-finite values")
@@ -532,14 +582,16 @@ def phase_render(tmp):
     want = {"nearest": 16 * batches, "occluded": 16 * batches}
     require(counts == want, f"K1 launches {counts}, want {want}")
     # The primary query walks all 1024² pixels; the 31 after it walk the
-    # lanes compaction keeps (BOUNCE_RAYS), in groups of four lanes.
+    # one live chunk of the static capacity (131,072 lanes, BOUNCE_RAYS of
+    # them live), in groups of four lanes.
     want = {"lane": 0, "group": 31 * batches}
     want[picked_design("quad_traverse", 1024 * 1024)] += batches
     require(designs == want, f"K1 designs {designs}, want {want}")
     with open(metrics) as f:
         rows = [json.loads(line) for line in f if line.strip()]
     require(len(rows) == batches, f"{len(rows)} metrics rows")
-    print("[5 render] sylveon512 1024^2 x4 batches, 65,024 tris, 4 bounces: "
+    print("[5 render] sylveon512 1024^2 x4 batches, 65,024 tris, 4 bounces "
+          "(native SAH build): "
           f"K1 launches {counts}, by design {designs}; batch_ms "
           + ", ".join(f"{r['batch_ms']:.1f}" for r in rows)
           + "; gross rays/s "
@@ -601,6 +653,16 @@ def check_refit(device):
           f"{accel.tris.shape[0]} leaf rows)", flush=True)
 
 
+def walk_launches(tapes):
+    """The walk launches of a taped render: per sub-sample, the primary
+    query and then 15 nearest and 16 occluded queries in each chunk of the
+    static capacity that ran (one pass at full width without
+    compaction)."""
+    k = [max(len(t.get("chunks", ())), 1) for t in tapes]
+    return {"nearest": sum(1 + 15 * c for c in k),
+            "occluded": sum(16 * c for c in k)}
+
+
 def phase_optimize(tmp, traversal, opt_params):
     """`optimize` through the CLI at 1024², 3 tape-backward steps; returns
     (launch counts of the run, metrics rows)."""
@@ -619,6 +681,10 @@ def phase_optimize(tmp, traversal, opt_params):
     # two functions the tape's autograd.Function calls.
     per_call = {"forward": [], "backward": []}
     ms = {"forward": [], "backward": []}
+    # The walk launches each taped forward should make: a tape runs as many
+    # chunks of the static capacity as its live lanes need (the vertex
+    # optimisation grows the sphere past one chunk after its first step).
+    want_forward = []
 
     def counted(fn, key):
         def wrapped(*a, **k):
@@ -630,6 +696,8 @@ def phase_optimize(tmp, traversal, opt_params):
             ms[key].append((time.perf_counter() - t0) * 1e3)
             per_call[key].append({m: mod.launch_counts[m] - before[m]
                                   for m in before})
+            if key == "forward":
+                want_forward.append(walk_launches(out[1]))
             return out
         return wrapped
 
@@ -660,13 +728,14 @@ def phase_optimize(tmp, traversal, opt_params):
             f"{traversal} optimize losses {losses}")
     require([r["step"] for r in rows] == list(range(steps)),
             f"{traversal} optimize metrics rows {rows}")
-    want = {"nearest": 16, "occluded": 16}
-    require(per_call["forward"] == [want] * steps,
-            f"{kernel} launches per taped forward {per_call['forward']}")
+    require(len(want_forward) == steps
+            and per_call["forward"] == want_forward,
+            f"{kernel} launches per taped forward {per_call['forward']}, "
+            f"want {want_forward}")
     zero = {"nearest": 0, "occluded": 0}
     require(per_call["backward"] == [zero] * steps,
             f"{kernel} launches per backward {per_call['backward']}")
-    require(counts == {m: 16 * steps for m in counts},
+    require(counts == {m: sum(w[m] for w in want_forward) for m in counts},
             f"{kernel} launches in the run {counts}")
     albedo = float(params["albedo"].mean())
     if traversal == "quad":
@@ -677,7 +746,8 @@ def phase_optimize(tmp, traversal, opt_params):
     print(f"[7 optimize] {traversal} 1024^2, {opt_params}: losses "
           + ", ".join(f"{x:.6g}" for x in losses)
           + f"; mean albedo {albedo:.4f}; {kernel} launches {counts} "
-          f"(16 + 16 per taped forward, 0 per backward); step_ms "
+          f"(per taped forward {per_call['forward']}, 0 per backward); "
+          "step_ms "
           + ", ".join(f"{r['step_ms']:.1f}" for r in rows)
           + " (taped forward " + ", ".join(f"{x:.1f}" for x in ms["forward"])
           + "; backward " + ", ".join(f"{x:.1f}" for x in ms["backward"])
@@ -1305,6 +1375,184 @@ def phase_walks(device):
           + "; ".join(line), flush=True)
 
 
+def phase_native(tmp):
+    """The native host runtime (g++, csrc/native_host.cpp): the flagship's
+    SAH and median trees and the OBJ parse of its mesh, byte-identical to
+    the numpy builders and the Python parser, each timed beside them."""
+    from dpt_tpu_torch.accel.bvh import build_bvh_median, build_bvh_sah
+    from dpt_tpu_torch.scene.builder import procedural_scene
+    from dpt_tpu_torch.scene.obj import load_obj, write_obj
+    from dpt_tpu_torch.utils import native
+
+    tag = "17 native"
+    require(native.available(), f"[{tag}] no g++: the native path is not "
+            "taken on this machine")
+    scene = procedural_scene(FLAGSHIP_TRIS_TARGET, device="cpu")
+    v, idx = scene.vertices.numpy(), scene.indices.numpy()
+    require(idx.shape[0] == FLAGSHIP_TRIS, f"{idx.shape[0]} triangles")
+
+    def timed(fn, n):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            res = fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return res, out
+
+    path = os.path.join(tmp, "flagship.obj")
+    write_obj(path, v, idx)
+    cases = {
+        "sah": (lambda u: build_bvh_sah(v, idx, leaf_size=8, use_native=u),
+                "build_bvh_sah", ("node_min", "node_max", "node_left",
+                                  "node_right", "tri_order")),
+        "median": (lambda u: build_bvh_median(v, idx, leaf_size=8,
+                                              use_native=u),
+                   "build_bvh", ("node_min", "node_max", "node_left",
+                                 "node_right", "tri_order")),
+        "obj": (lambda u: load_obj(path, use_native=u), "load_obj",
+                ("vertices", "indices", "uvs", "mat_idx", "material_albedo")),
+    }
+    res = {}
+    for name, (fn, counter, fields) in cases.items():
+        before = native.calls[counter]
+        got, nat_ms = timed(lambda: fn(True), 3)
+        require(native.calls[counter] == before + 3,
+                f"[{tag}] {name}: the native path was not taken")
+        ref, np_ms = timed(lambda: fn(False), 1)
+        require(all(getattr(got, f).tobytes() == getattr(ref, f).tobytes()
+                    and getattr(got, f).shape == getattr(ref, f).shape
+                    for f in fields),
+                f"[{tag}] {name}: native differs from numpy")
+        res[name] = {"native_ms": nat_ms, "numpy_ms": np_ms[0]}
+    print(f"[{tag}] g++ build at first use {native.build_seconds:.2f} s; "
+          f"flagship {FLAGSHIP_TRIS} tris, leaf 8, native ≡ "
+          "numpy byte for byte: " + "; ".join(
+              f"{k} native ms " + ", ".join(f"{x:.1f}" for x in r["native_ms"])
+              + f", numpy ms {r['numpy_ms']:.1f}" for k, r in res.items()),
+          flush=True)
+    return res
+
+
+def phase_capacity(device):
+    """The static capacity: the flagship at compact_frac 0.125 (C = 131,072
+    lanes, one live chunk of 8) and 0.0625 (C = 65,536, two live chunks),
+    box512 at its 0.25 (C = 65,536 of 262,144) at its own framing (one live
+    chunk) and from closer (every lane live: four), each image equal to
+    the same render at compact_frac 0; K1's launches and designs per batch;
+    batch ms (host clock, synchronised)."""
+    from dpt_tpu_torch.accel.bvh import build_accel
+    from dpt_tpu_torch.config import preset
+    from dpt_tpu_torch.kernels import intersect as K
+    from dpt_tpu_torch.kernels import quad
+    from dpt_tpu_torch.render.renderer import render_sample
+    from dpt_tpu_torch.scene.builder import cornell_box_scene, procedural_scene
+    from dpt_tpu_torch.scene.camera import OrbitCamera
+
+    tag = "18 capacity"
+    cfg = preset("sylveon512", width=1024, height=1024)
+    scene = procedural_scene(FLAGSHIP_TRIS_TARGET, device=device)
+    accel = build_accel(scene, cfg)
+    camera = OrbitCamera().camera(device)
+    ref = render_sample(scene, camera, cfg.replace(compact_frac=0.0), 5,
+                        accel)
+    launches, lines, ms = {}, [], {}
+    for frac, want in ((0.125, 1), (0.0625, 2)):
+        c = cfg.replace(compact_frac=frac)
+        quad.reset_launch_counts()
+        img = render_sample(scene, camera, c, 5, accel)
+        torch.cuda.synchronize()
+        counts, designs = dict(quad.launch_counts), dict(quad.design_counts)
+        diff = float((img - ref).abs().max())
+        require(torch.equal(img, ref), f"[{tag}] flagship at compact_frac "
+                f"{frac} differs from 0 (max |diff| {diff:.3g})")
+        n = {"nearest": 1 + 15 * want, "occluded": 16 * want}
+        require(counts == n, f"[{tag}] K1 launches {counts} at {frac}, "
+                f"want {n}")
+        require(designs["group"] == 31 * want,
+                f"[{tag}] K1 designs {designs} at {frac}")
+        launches[frac] = counts
+        lines.append(f"compact_frac {frac}: ≡ compact_frac 0 (max |diff| "
+                     f"{diff:.3g}), K1 {counts} by design {designs}")
+    for frac in (0.125, 0.0625, 0.0):
+        c = cfg.replace(compact_frac=frac)
+        ms[f"flagship {frac}"] = _batch_ms(
+            lambda: render_sample(scene, camera, c, 6, accel))
+
+    box = preset("box512", kernels="intersect")
+    box_scene = cornell_box_scene(device=device)
+    for name, orbit, b in (("box512", OrbitCamera(), box),
+                           ("box512 radius 2.5, 4 spp",
+                            OrbitCamera(radius=2.5), box.replace(spp=4))):
+        cam = orbit.camera(device)
+        K.reset_launch_counts()
+        img = render_sample(box_scene, cam, b, 0)
+        torch.cuda.synchronize()
+        k3 = dict(K.launch_counts)
+        off = render_sample(box_scene, cam, b.replace(compact_frac=0.0), 0)
+        diff = float((img - off).abs().max())
+        require(torch.equal(img, off), f"[{tag}] {name} at compact_frac "
+                f"{b.compact_frac} differs from 0 (max |diff| {diff:.3g})")
+        lines.append(f"{name} at {b.compact_frac}: ≡ compact_frac 0 (max "
+                     f"|diff| {diff:.3g}), K3 {k3}")
+        ms[name] = _batch_ms(lambda: render_sample(box_scene, cam, b, 1),
+                             n=1)
+        ms[f"{name} 0.0"] = _batch_ms(lambda: render_sample(
+            box_scene, cam, b.replace(compact_frac=0.0), 1), n=1)
+    print(f"[{tag}] " + "; ".join(lines) + "; batch ms (host clock, "
+          "synchronised) " + "; ".join(
+              f"{k}: " + ", ".join(f"{x:.1f}" for x in v)
+              for k, v in ms.items()), flush=True)
+    return launches, ms
+
+
+def phase_syncs(device):
+    """One flagship render_sample under torch.cuda.set_sync_debug_mode
+    ("warn") at compact_frac 0.125 and at 0: the synchronising calls of
+    each, counted by file:line; the compacted batch may not have more."""
+    import warnings
+
+    from dpt_tpu_torch.accel.bvh import build_accel
+    from dpt_tpu_torch.config import preset
+    from dpt_tpu_torch.render.renderer import render_sample
+    from dpt_tpu_torch.scene.builder import procedural_scene
+    from dpt_tpu_torch.scene.camera import OrbitCamera
+
+    tag = "19 syncs"
+    cfg = preset("sylveon512", width=1024, height=1024)
+    scene = procedural_scene(FLAGSHIP_TRIS_TARGET, device=device)
+    accel = build_accel(scene, cfg)
+    camera = OrbitCamera().camera(device)
+    sites = {}
+    for frac in (0.125, 0.0):
+        c = cfg.replace(compact_frac=frac)
+        render_sample(scene, camera, c, 7, accel)  # warm-up
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                render_sample(scene, camera, c, 8, accel)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        count = {}
+        for w in caught:
+            if str(w.message).startswith("called a synchronizing"):
+                where = (f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                         if w.filename.startswith(ROOT) else
+                         f"{w.filename}:{w.lineno}")
+                count[where] = count.get(where, 0) + 1
+        sites[frac] = count
+    n = {f: sum(v.values()) for f, v in sites.items()}
+    print(f"[{tag}] flagship render_sample under sync debug mode 'warn': "
+          + "; ".join(f"compact_frac {f}: {n[f]} warnings "
+                      + json.dumps(v, sort_keys=True)
+                      for f, v in sites.items()), flush=True)
+    require(n[0.125] <= n[0.0], f"[{tag}] the compacted batch syncs more "
+            f"({n[0.125]}) than the uncompacted one ({n[0.0]})")
+    return sites
+
+
 # Per-stream numbers each kernels-line entry carries: the primary stream's
 # under these names, every other stream's with "_<stream>" appended.
 ENTRY_KEYS = ("ms", "kernel_ms", "kernel_ms_lane", "kernel_ms_group",
@@ -1360,6 +1608,9 @@ def main():
         lbvh_counts, _ = phase_lbvh(device, tmp)
         wavefront_counts, _ = phase_wavefront(device)
         phase_walks(device)
+        phase_native(tmp)
+        capacity_counts, _ = phase_capacity(device)
+        phase_syncs(device)
 
     # No PyTorch call computes a BVH walk or the brute-force nearest hit,
     # so library_ms is null.
@@ -1371,6 +1622,8 @@ def main():
                               launches_optimize=quad_counts,
                               launches_lbvh=lbvh_counts,
                               launches_wavefront=wavefront_counts,
+                              **{f"launches_compact_frac_{f}": c
+                                 for f, c in capacity_counts.items()},
                               **per_rank)
                + kernel_entries("wide_traverse", k2, wide_counts)
                + kernel_entries("intersect_nearest",

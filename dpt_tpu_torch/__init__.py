@@ -24,6 +24,10 @@ It imports torch and numpy only, never jax or dpt_tpu.
 """
 
 from dpt_tpu_torch.config import PRESETS, RenderConfig, preset
+from dpt_tpu_torch.diff.grads import (
+    differentiable_render,
+    render_loss_and_grads,
+)
 from dpt_tpu_torch.render.renderer import (
     accumulate,
     render,
@@ -37,6 +41,7 @@ from dpt_tpu_torch.scene.builder import (
     procedural_scene,
 )
 from dpt_tpu_torch.scene.camera import Camera, OrbitCamera
+from dpt_tpu_torch.scene.obj import load_obj
 from dpt_tpu_torch.scene.scene import (
     Lights,
     Materials,
@@ -58,6 +63,7 @@ __all__ = [
     "default_lights",
     "OrbitCamera",
     "Camera",
+    "load_obj",
     "cornell_box_scene",
     "procedural_scene",
     "knot_scene",
@@ -66,4 +72,6 @@ __all__ = [
     "render_sample",
     "render_progressive",
     "accumulate",
+    "render_loss_and_grads",
+    "differentiable_render",
 ]

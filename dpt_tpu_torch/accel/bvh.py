@@ -1,7 +1,10 @@
 """Host BVH builders — top-down median split and binned SAH, SoA layout.
 
 Counterpart of `dpt_tpu/accel/bvh.py`: a copy of its numpy builders, so both
-packages build byte-identical trees.  Splitting policy as in the reference's
+packages build byte-identical trees.  As in the JAX package, meshes of
+NATIVE_MIN_TRIS triangles or more build in C++ (utils/native.py, the same
+trees byte for byte) unless `use_native=False`; without `g++` they build
+in numpy.  Splitting policy as in the reference's
 recursive CPU builder (BoundingVolumeHierarchy.cpp:25-82); leaves hold up to
 `leaf_size` triangles; the index buffer is not mutated — `tri_order` holds
 the permutation and leaves store ranges into it.
@@ -19,6 +22,10 @@ import dataclasses
 
 import numpy as np
 import torch
+
+# Meshes from this size build with the native runtime (the JAX package's
+# threshold, dpt_tpu/accel/bvh.py:63,150).
+NATIVE_MIN_TRIS = 1024
 
 
 @dataclasses.dataclass
@@ -39,12 +46,20 @@ class BVH:
 
 
 def build_bvh_median(vertices: np.ndarray, indices: np.ndarray,
-                     leaf_size: int = 4) -> BVH:
+                     leaf_size: int = 4, use_native: bool = True) -> BVH:
     """Median-split BVH (semantics of BoundingVolumeHierarchy.cpp:25-82)."""
     vertices = np.asarray(vertices, np.float32)
     indices = np.asarray(indices, np.int32)
     n_tri = indices.shape[0]
     assert n_tri > 0
+
+    if use_native and n_tri >= NATIVE_MIN_TRIS:
+        from dpt_tpu_torch.utils.native import native_build_bvh
+
+        # None only without g++; a native failure raises.
+        out = native_build_bvh(vertices, indices, leaf_size)
+        if out is not None:
+            return BVH(*out)
 
     tri = vertices[indices]  # [T, 3, 3]
     tri_min = tri.min(axis=1)
@@ -100,19 +115,27 @@ def build_bvh_median(vertices: np.ndarray, indices: np.ndarray,
 
 
 def build_bvh_sah(vertices: np.ndarray, indices: np.ndarray,
-                  leaf_size: int = 8, n_bins: int = 16) -> BVH:
+                  leaf_size: int = 8, n_bins: int = 16,
+                  use_native: bool = True) -> BVH:
     """Binned surface-area-heuristic BVH (host; C++ for large meshes).
 
     Upgrade over the reference's median split (BoundingVolumeHierarchy.cpp:
     56-72): per node, centroids are binned along each axis and the split
     minimizing N_L*area(L) + N_R*area(R) is taken.  Same node encoding as
-    build_bvh_median.  The numpy path of the JAX package, byte for byte (the
-    native C++ builder is not used here).
+    build_bvh_median.  The numpy path of the JAX package, byte for byte;
+    large meshes take the native builder (the same tree).
     """
     vertices = np.asarray(vertices, np.float32)
     indices = np.asarray(indices, np.int32)
     n_tri = indices.shape[0]
     assert n_tri > 0
+
+    if use_native and n_tri >= NATIVE_MIN_TRIS:
+        from dpt_tpu_torch.utils.native import native_build_bvh_sah
+
+        out = native_build_bvh_sah(vertices, indices, leaf_size, n_bins)
+        if out is not None:
+            return BVH(*out)
 
     tri = vertices[indices]
     tri_min = tri.min(axis=1)
@@ -265,8 +288,9 @@ def build_accel(scene, cfg):
     QuadAccel for 'quad', a WideAccel for 'pallas', and for 'bvh', 'packet'
     and 'threaded' the binary BVH the per-ray walk takes
     (accel/traverse.py).  bvh_builder 'median' and 'sah' build on the
-    host; 'lbvh' builds on the scene's device, pruned for the
-    PRUNED_TRAVERSALS when its leaves hold more than one triangle."""
+    host (natively from NATIVE_MIN_TRIS triangles); 'lbvh' builds on the
+    scene's device, pruned for the PRUNED_TRAVERSALS when its leaves hold
+    more than one triangle."""
     if cfg.traversal == "brute":
         return None
     if cfg.traversal not in ("quad", "pallas", "bvh", "packet", "threaded"):

@@ -14,9 +14,11 @@ Multi-process (`render` and `optimize`): start the same command once per
 rank with `--num-processes N --process-id R --coordinator HOST:PORT`
 (dist/sharding.py picks the backend: nccl with a card per rank, gloo on
 the CPU or on shared cards).  `--sharded` splits the frame's rows over the
-ranks; rank 0 alone writes files (image, checkpoint, recovered
-parameters, the --metrics file; the other ranks log their metrics rows to
-standard output), and a resume takes rank 0's checkpoint on every rank.
+ranks; without `--num-processes` on a machine with several cards it starts
+one rank per card itself.  Rank 0 alone writes files (image, checkpoint,
+recovered parameters, the --metrics file; the other ranks log their
+metrics rows to standard output), and a resume takes rank 0's checkpoint
+on every rank.
 
 The default device is `cuda`, and a command fails when no card is present;
 the CPU runs only when asked for with `--device cpu`.
@@ -92,11 +94,15 @@ def _add_cfg_args(r):
     r.add_argument("--wavefront-sort", action="store_true",
                    help="sort the whole carry once per bounce by hit "
                         "position (replaces --sort's per-query sort)")
+    r.add_argument("--packet-tile", type=_positive_int,
+                   help="rays per packet tile (accepted for the JAX "
+                        "package's command lines; no effect here)")
     r.add_argument("--no-sss", action="store_true")
     r.add_argument("--rr", action="store_true", help="Russian roulette")
     r.add_argument("--compact-frac", type=_frac_or_auto, default=None,
-                   help="carry compaction after the primary trace (> 0 on, "
-                        "0 off; 'auto' derives it from a primary-hit probe)")
+                   help="carry-compaction capacity fraction (0 disables; "
+                        "'auto' derives it from a primary-hit probe; "
+                        "chunked overflow keeps any value exact)")
     r.add_argument("--metrics", help="JSONL metrics file (default stdout)")
     r.add_argument("--yaw", type=float, default=0.0)
     r.add_argument("--pitch", type=float, default=0.0)
@@ -203,6 +209,8 @@ def _make_cfg(args):
         over["ray_sort"] = True
     if args.wavefront_sort:
         over["wavefront_sort"] = True
+    if args.packet_tile is not None:
+        over["packet_tile"] = args.packet_tile
     if args.no_sss:
         over["enable_sss"] = False
     if args.rr:
@@ -646,12 +654,60 @@ def cmd_info():
     return info
 
 
+def _cards_to_span(args) -> int:
+    """The number of ranks `--sharded` starts itself: every card of this
+    machine when the render device is CUDA (no card index), there is more
+    than one card and no `--num-processes` was given, as the JAX package's
+    `--sharded` spans every local device; else 0 (render in this
+    process)."""
+    import torch
+
+    if args.cmd not in ("render", "optimize") or not args.sharded or (
+            args.num_processes is not None):
+        return 0
+    device = torch.device(args.device)
+    if device.type != "cuda" or device.index is not None or (
+            not torch.cuda.is_available()):
+        return 0
+    n = torch.cuda.device_count()
+    return n if n > 1 else 0
+
+
+def _span_cards(argv, n: int) -> list:
+    """Run this command line as one rank per card (dist/launch.run_ranks:
+    each rank adds its multi-process options, rendezvous on localhost) and
+    print every rank's output; returns the outputs."""
+    from dpt_tpu_torch.dist.launch import free_port, run_ranks
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    print(f"--sharded: one rank per card, {n} ranks", file=sys.stderr,
+          flush=True)
+    port = free_port()
+    cmds = [[sys.executable, "-m", "dpt_tpu_torch.cli", *argv,
+             "--num-processes", str(n), "--process-id", str(r),
+             "--coordinator", f"localhost:{port}"] for r in range(n)]
+    outs = run_ranks(cmds, float("inf"), env=env)
+    for r, out in enumerate(outs):
+        print(f"--- rank {r} ---\n{out}", end="" if out.endswith("\n")
+              else "\n")
+    return outs
+
+
 def main(argv=None):
     """Run one subcommand: `render` returns its image [H, W, 3], `optimize`
     its (params, losses), `interactive` its last accumulation, `info` its
-    dict."""
+    dict.  `render` / `optimize --sharded` on a machine with several cards
+    and no `--num-processes` start one rank per card and return the ranks'
+    outputs."""
     parser = _build_parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
+    n = _cards_to_span(args)
+    if n:
+        return _span_cards(argv, n)
     if args.cmd == "render":
         return cmd_render(args, parser)
     if args.cmd == "optimize":

@@ -20,17 +20,21 @@ group, and the split and the collectives are spelled out:
 
 Every collective here is issued by every rank the same number of times in
 the same order, outside any branch that depends on a rank's data.  The
-integrator compacts each rank to its own live lanes with a host sync per
-sub-sample, so ranks differ in live-lane counts; no collective sits inside
-that code (the torch form of the divergent-branch deadlock the JAX
-package's tests/test_sharding.py guards against).
+integrator compacts each rank's lanes into its own static capacity and
+skips the chunks that hold none of its live lanes, so ranks differ in the
+work they dispatch; no collective sits inside that code (the torch form
+of the divergent-branch deadlock the JAX package's tests/test_sharding.py
+guards against).
 
 Backend rule (`backend_for`): `nccl` when every rank has a card of its own,
 `gloo` when the ranks run on the CPU or share cards (NCCL refuses two ranks
-on one device).  The rule is decided from the device and the number of
-cards before the group starts; a failed init is never retried with another
-backend.  `gloo` takes CUDA tensors for all_reduce, broadcast and
-all_gather (scripts/torch_gloo_cuda_probe.py on the H100).
+on one device).  The rule is decided before the group starts, from the
+device, the number of cards on this machine and the ranks on this machine
+(LOCAL_WORLD_SIZE / LOCAL_RANK when a launcher sets them, so a job of
+several machines with a card per rank gets nccl; else the world size); a
+failed init is never retried with another backend.  `gloo` takes CUDA
+tensors for all_reduce, broadcast and all_gather
+(scripts/torch_gloo_cuda_probe.py on the H100).
 
 Without a process group (or with one rank) every function here works on
 the whole frame and no collective runs.
@@ -38,6 +42,7 @@ the whole frame and no collective runs.
 
 from __future__ import annotations
 
+import os
 import sys
 
 import torch
@@ -60,22 +65,33 @@ def world() -> tuple:
     return 0, 1
 
 
+def _local(name: str, default: int) -> int:
+    """The launcher's `name` (LOCAL_WORLD_SIZE, LOCAL_RANK: torchrun sets
+    them on every rank), else `default`."""
+    value = os.environ.get(name)
+    return int(value) if value else default
+
+
 def backend_for(device, world_size: int) -> str:
-    """'nccl' when the ranks render on CUDA and each has a card of its own
-    (at least world_size cards on this machine), else 'gloo'."""
+    """'nccl' when the ranks render on CUDA and each rank of this machine
+    has a card of its own, else 'gloo'.  The ranks on this machine are
+    $LOCAL_WORLD_SIZE, else the world size (one machine)."""
     device = torch.device(device)
-    if device.type == "cuda" and world_size <= torch.cuda.device_count():
+    if device.type == "cuda" and (_local("LOCAL_WORLD_SIZE", world_size)
+                                  <= torch.cuda.device_count()):
         return "nccl"
     return "gloo"
 
 
 def rank_device(device, rank: int) -> torch.device:
     """The device rank `rank` renders on: `device` itself when it names an
-    index or is not CUDA, else card rank % (number of cards)."""
+    index or is not CUDA, else card ($LOCAL_RANK, else `rank`) % (cards on
+    this machine)."""
     device = torch.device(device)
     if device.type != "cuda" or device.index is not None:
         return device
-    return torch.device("cuda", rank % max(torch.cuda.device_count(), 1))
+    return torch.device("cuda", _local("LOCAL_RANK", rank)
+                        % max(torch.cuda.device_count(), 1))
 
 
 def init_distributed(coordinator=None, num_processes=None, process_id=None,

@@ -20,23 +20,31 @@ Stages per bounce (reference cites, raytrace_comp.comp):
 plus the direct-view light pass before the loop (:309-328), which shares
 the one primary trace with bounce 0.
 
-Carry compaction (cfg.compact_frac > 0): after the primary trace the bounce
-loop runs only on the lanes whose primary ray hit — exactly `n_live` lanes,
-gathered in Morton order of the hit position by one stable argsort, and
-scattered back over zeros.  Every lane that misses at bounce 0 contributes
-exactly zero from the whole loop, so this is exact per lane.  (The JAX
-package compacts into a static capacity with chunked overflow, because XLA
-needs static shapes; PyTorch does not.)
+Carry compaction (cfg.compact_frac), as in the JAX package: after the
+primary trace the lanes are ordered live first, in Morton order of the hit
+position (one stable argsort), padded with the index R up to k = ceil(R/C)
+chunks of the static capacity C = ceil(compact_frac * R / 128) * 128
+(`capacity`; compaction applies when 0 < C < R).  Each chunk gathers its C
+lanes, runs bounce 0's shade phase and the bounce loop at width C, and its
+radiance is scattered back over zeros (the pad index R lands in a row that
+is dropped).  Every lane that misses at bounce 0 contributes exactly zero
+from the whole loop, so this is exact per lane at any capacity.  Chunk 0
+always runs; chunk c > 0 runs only when it holds live lanes (n_live >
+c * C).  The live-lane count reaches the host without a stream sync
+(`_HostCount`: a non_blocking copy to pinned memory and an event), and the
+host reads it only after chunk 0 is queued, so it waits for the primary
+trace alone and never for work queued after it.
 
 Query tape: since every traversal outcome is detached, a render is a
 deterministic function of (params, seed) and of those outcomes.
 `trace_paths(..., tape="record")` also returns every outcome (a nearest
 query as one int32 per lane, the triangle or -1, plus `t` for the primary;
-an occluded query as its bool), and `trace_paths(..., tape=<that tape>)`
-plays the render back without a single traversal or per-query sort.  The
-playback recomputes `n_live` and the compaction permutation from the taped
-primary (`hit`, `t`), so its bounces run on the same lanes in the same
-order as the recording.
+an occluded query as its bool), one list of bounces per chunk that ran
+(`chunks`, or `body` without compaction), and `trace_paths(..., tape=<that
+tape>)` plays the render back without a single traversal or per-query
+sort.  The playback recomputes n_live and the compaction permutation from
+the taped primary (`hit`, `t`), so it runs the recording's chunks on the
+same lanes in the same order.
 
 Wavefront sort (cfg.wavefront_sort): in every bounce, after its nearest
 query and before the NEE / SSS / bounce-direction phase, the whole carry
@@ -407,21 +415,70 @@ def _run_bounces(body, carry, prim, cfg: RenderConfig, mode: str,
     return carry[3]
 
 
-def _live_permutation(prim, origin, direction, scene):
-    """The lanes whose primary ray hit, in Morton order of the hit position
-    (one stable argsort; the number of lanes is taken on the host).  A
-    playback calls it on the taped primary (hit, t) and so gets the
-    recording's lanes in the recording's order."""
+def capacity(R: int, compact_frac: float) -> int:
+    """The JAX package's static capacity: ceil(R * compact_frac / 128) * 128
+    lanes (0 with compaction off).  Compaction applies when 0 < C < R."""
+    return int(-(-(R * compact_frac) // 128) * 128) if compact_frac else 0
+
+
+class _HostCount:
+    """A count on the device, read on the host without a stream sync: it is
+    copied (non_blocking) into pinned memory and an event is recorded after
+    the copy; reading the value waits on that event only, so the host never
+    waits for work queued after the count.  On the CPU it is the count."""
+
+    def __init__(self, n):
+        self._ready = None
+        if n.device.type == "cuda":
+            self._host = torch.empty((), dtype=n.dtype, pin_memory=True)
+            self._host.copy_(n, non_blocking=True)
+            self._ready = torch.cuda.Event()
+            self._ready.record(torch.cuda.current_stream(n.device))
+        else:
+            self._host = n
+        self._value = None
+
+    def value(self) -> int:
+        if self._value is None:
+            if self._ready is not None:
+                self._ready.synchronize()
+            self._value = int(self._host)
+        return self._value
+
+
+def _compaction_order(prim, origin, direction, scene, C: int):
+    """(perm [k*C], n_live): the lanes in Morton order of the primary hit
+    position, live lanes first (one stable argsort), padded with the index
+    R up to k = ceil(R / C) chunks of C; and the live-lane count as a
+    _HostCount.  A playback calls it on the taped primary (hit, t) and so
+    gets the recording's lanes, order and chunk decisions."""
     from dpt_tpu_torch.render.compaction import morton3d
 
     hit0 = prim["hit"]
-    n_live = int(hit0.sum())
+    R = hit0.shape[0]
     verts = scene.vertices.detach()
     pos_key = origin.detach() + prim["t"][:, None] * direction.detach()
     key = torch.where(hit0, morton3d(pos_key, verts.min(dim=0).values,
                                      verts.max(dim=0).values),
                       torch.full_like(hit0, MASK32, dtype=torch.int64))
-    return torch.argsort(key, stable=True)[:n_live]
+    perm = torch.argsort(key, stable=True)
+    pad = -(-R // C) * C - R
+    if pad:
+        perm = torch.cat([perm, perm.new_full((pad,), R)])
+    return perm, _HostCount(hit0.sum())
+
+
+def _chunk(carry, prim, idx, R: int, padded: bool):
+    """The carry and primary record of the lanes `idx` (one chunk).  With
+    `padded` (the last chunk holds pad entries, index R) a pad entry
+    gathers lane R - 1 as an inactive lane, so it does no work, and the
+    scatter drops its result."""
+    gidx = idx.clamp(max=R - 1) if padded else idx
+    carry_c = [x.index_select(0, gidx) for x in carry]
+    if padded:
+        carry_c[4] = carry_c[4] & (idx < R)
+    return tuple(carry_c), {k: v.index_select(0, gidx)
+                            for k, v in prim.items()}
 
 
 def trace_paths(origin, direction, state, scene, nearest, cfg: RenderConfig,
@@ -470,25 +527,46 @@ def trace_paths(origin, direction, state, scene, nearest, cfg: RenderConfig,
     if cfg.wavefront_sort:
         body = _wavefront_sorted(body, nearest, scene)
     carry = (origin, direction, throughput, radiance, active, state)
-    tape_bounces = tape["bounces"] if play else None
 
-    if cfg.compact_frac > 0:
-        perm = _live_permutation(prim, origin, direction, scene)
-        n_live = perm.numel()
-        radiance = torch.zeros_like(origin)
-        tape_out["bounces"] = []
-        if n_live:
-            carry_c = tuple(x.index_select(0, perm) for x in carry)
-            prim_c = {k: v.index_select(0, perm) for k, v in prim.items()}
-            out = _run_bounces(body, carry_c, prim_c, cfg, mode,
-                               tape_bounces)
+    C = capacity(R, cfg.compact_frac)
+    if 0 < C < R:
+        perm, n_live = _compaction_order(prim, origin, direction, scene, C)
+        k = perm.shape[0] // C
+        # Row R takes the pad entries' results and is dropped.
+        out = torch.zeros((R + 1, 3), dtype=origin.dtype,
+                          device=origin.device)
+        tape_chunks, n_run = [], 0
+        for c in range(k):
+            # Chunk 0 always runs (an all-dead chunk gives exact zeros);
+            # chunk c > 0 only when it holds live lanes.  The live lanes
+            # come first, so the first chunk without any ends the loop.
+            # Reading n_live here waits for the primary only: chunk 0 is
+            # queued by then.
+            if c and n_live.value() <= c * C:
+                break
+            if play and c >= len(tape["chunks"]):
+                raise ValueError(f"the tape holds {len(tape['chunks'])} "
+                                 "chunks, its primary selects more")
+            idx = perm[c * C:(c + 1) * C]
+            carry_c, prim_c = _chunk(carry, prim, idx, R, (c + 1) * C > R)
+            rad_c = _run_bounces(body, carry_c, prim_c, cfg, mode,
+                                 tape["chunks"][c] if play else None)
             if record:
-                out, tape_out["bounces"] = out
-            radiance = radiance.index_copy(0, perm, out)
-    else:
-        radiance = _run_bounces(body, carry, prim, cfg, mode, tape_bounces)
+                rad_c, entries = rad_c
+                tape_chunks.append(entries)
+            out = out.index_copy(0, idx, rad_c)
+            n_run += 1
+        if play and n_run != len(tape["chunks"]):
+            raise ValueError(f"the tape holds {len(tape['chunks'])} "
+                             f"chunks, its primary selects {n_run}")
+        radiance = out[:R]
         if record:
-            radiance, tape_out["bounces"] = radiance
+            tape_out["chunks"] = tape_chunks
+    else:
+        radiance = _run_bounces(body, carry, prim, cfg, mode,
+                                tape["body"] if play else None)
+        if record:
+            radiance, tape_out["body"] = radiance
 
     radiance = torch.where(dv_done[:, None], dv_value, radiance)
     if record:

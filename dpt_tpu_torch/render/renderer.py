@@ -211,8 +211,7 @@ def render_progressive(
     batch: an event recorded before its dispatch) to the event after this
     one, so a run's batch_ms sum to its span on the card.  (The JAX loop
     times a batch from its own dispatch, which with one batch in flight
-    spans two batches.)  The integrator takes the live-lane count on the
-    host inside each batch (compaction), which bounds the overlap.
+    spans two batches.)
     """
     from dpt_tpu_torch.utils.metrics import traversals_per_sample
 
@@ -312,9 +311,7 @@ def auto_compact_frac(scene, camera, cfg: RenderConfig, accel=None,
     long side (a square probe of a non-square frame would see another field
     of view); the capacity covers the hit lanes with `margin` headroom,
     rounded up to 128 lanes at the real size.  Returns 0.0 (compaction
-    off) when that capacity is not smaller than the frame.  The port
-    compacts to exactly the live lanes for any value > 0, so the value
-    only turns compaction on or off here."""
+    off) when that capacity is not smaller than the frame."""
     f = min(probe_side / max(cfg.width, cfg.height), 1.0)
     probe = cfg.replace(width=max(1, round(cfg.width * f)),
                         height=max(1, round(cfg.height * f)))

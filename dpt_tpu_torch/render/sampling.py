@@ -14,9 +14,21 @@ from dpt_tpu_torch.render.rng import rng_next
 _PI = 3.14159265358979323846
 
 
+_VEC3 = {}
+
+
 def vec3(v, like):
-    """Constant float32 vector on the device of tensor `like`."""
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    """Constant float32 vector on the device of tensor `like`, made once per
+    value and device: a copy to the card at every call would make the host
+    wait for the stream each time (a pageable host-to-device copy
+    synchronises).  Never written to."""
+    key = (tuple(v), like.device)
+    out = _VEC3.get(key)
+    if out is None:
+        with torch.inference_mode(False):
+            out = _VEC3[key] = torch.tensor(v, dtype=torch.float32,
+                                            device=like.device)
+    return out
 
 
 def normalize(v):

@@ -1,9 +1,11 @@
 """Wavefront OBJ loader -> flat numpy arrays.
 
-A copy of the pure-Python parser of `dpt_tpu/scene/obj.py` (numpy only);
-the JAX package's optional native parser (native/libdpt_native.so) is not
-used here.  Replaces the reference's tiny_obj_loader.h + the flattening in
-VulkanRayTracer.cpp:64-92.
+A copy of the pure-Python parser of `dpt_tpu/scene/obj.py` (numpy only).
+As in the JAX package, `load_obj(use_native=True)` parses the geometry with
+the native runtime (utils/native.py, the port's own C++ build: the same
+arrays byte for byte) and scans only the material statements in Python;
+without `g++` the pure-Python parser runs.  Replaces the reference's
+tiny_obj_loader.h + the flattening in VulkanRayTracer.cpp:64-92.
 
 Supported: v / vt / f (triangles and arbitrary polygons by fan
 triangulation, tinyobjloader's default), negative (relative) indices,
@@ -54,6 +56,25 @@ def _parse_mtl(path: str) -> dict:
     return albedos
 
 
+def _scan_materials(path: str):
+    """usemtl order + mtllib Kd values (the only parts the native geometry
+    parser leaves to Python)."""
+    names: list = []
+    kd: dict = {}
+    base_dir = os.path.dirname(os.path.abspath(path))
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            if parts[0] == "usemtl" and len(parts) > 1:
+                if parts[1] not in names:
+                    names.append(parts[1])
+            elif parts[0] == "mtllib" and len(parts) > 1:
+                kd.update(_parse_mtl(os.path.join(base_dir, parts[1])))
+    return names, kd
+
+
 def _material_table(mat_names, mat_kd, default_albedo):
     n_mat = max(len(mat_names), 1)
     albedo = np.tile(np.asarray(default_albedo, np.float32), (n_mat, 1))
@@ -63,7 +84,25 @@ def _material_table(mat_names, mat_kd, default_albedo):
     return albedo
 
 
-def load_obj(path: str, default_albedo=(0.8, 0.8, 0.8)) -> ObjMesh:
+def load_obj(path: str, default_albedo=(0.8, 0.8, 0.8),
+             use_native: bool = True) -> ObjMesh:
+    if use_native:
+        from dpt_tpu_torch.utils.native import native_load_obj
+
+        native = native_load_obj(path)  # None only without g++
+        if native is not None:
+            vertices, indices, uvs, mat_idx = native
+            mat_names, mat_kd = _scan_materials(path)
+            return ObjMesh(
+                vertices=vertices,
+                indices=indices,
+                uvs=uvs,
+                mat_idx=mat_idx,
+                material_names=mat_names,
+                material_albedo=_material_table(mat_names, mat_kd,
+                                                default_albedo),
+            )
+
     positions: list = []
     texcoords: list = []
     faces: list = []  # (corners ((pos_idx, uv_idx or None) x 3), mat_id)

@@ -89,6 +89,27 @@ def test_backend_rule(monkeypatch):
     assert S.world() == (0, 1)
 
 
+def test_backend_rule_counts_the_ranks_of_this_machine(monkeypatch):
+    """The rule reads the ranks on this machine (LOCAL_WORLD_SIZE /
+    LOCAL_RANK), not the world size: 2 machines x 8 cards (world size 16)
+    get nccl and card LOCAL_RANK; 2 ranks sharing 1 card get gloo.  Decided
+    before any init."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "8")
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    assert S.backend_for("cuda", 16) == "nccl"
+    assert S.rank_device("cuda", 11) == torch.device("cuda", 3)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert S.backend_for("cuda", 2) == "gloo"
+    assert S.rank_device("cuda", 1) == torch.device("cuda", 0)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE")
+    monkeypatch.delenv("LOCAL_RANK")
+    assert S.backend_for("cuda", 2) == "gloo"
+    assert S.world() == (0, 1)
+
+
 def test_rank_rows_cover_the_frame():
     cfg = T.RenderConfig(width=5, height=12)
     from dpt_tpu_torch.render.raygen import pixel_grid

@@ -195,31 +195,37 @@ def test_taped_render_and_playback(traversal, monkeypatch):
 
 
 def test_playback_rebuilds_the_compaction_from_the_tape(monkeypatch):
-    """The playback's n_live and Morton permutation come from the taped
-    primary (hit, t), and equal the recording's."""
+    """The playback's live-lane count, Morton permutation and chunks come
+    from the taped primary (hit, t), and equal the recording's."""
     scene, cam, cfg, accel = _flagship_like("pallas", max_depth=2)
     seen = []
-    live_permutation = integrator._live_permutation
+    compaction_order = integrator._compaction_order
 
     def spy(prim, *a):
-        seen.append((prim, live_permutation(prim, *a)))
-        return seen[-1][1]
+        perm, n_live = compaction_order(prim, *a)
+        seen.append((prim, perm, n_live.value()))
+        return perm, n_live
 
-    monkeypatch.setattr(integrator, "_live_permutation", spy)
+    monkeypatch.setattr(integrator, "_compaction_order", spy)
     _, tapes = renderer.render_sample_taped(scene, cam, cfg, 1, accel)
-    (prim_r, perm_r), = seen
+    (prim_r, perm_r, n_r), = seen
     n_live = int((tapes[0]["prim"]["tri1"] >= 0).sum())
-    assert 0 < n_live < cfg.n_pixels and perm_r.shape == (n_live,)
-    # Every entry of every bounce holds exactly the n_live compacted lanes.
-    for entries in tapes[0]["bounces"]:
+    C = integrator.capacity(cfg.n_pixels, cfg.compact_frac)
+    assert 0 < n_live <= C < cfg.n_pixels and n_r == n_live
+    # The live lanes first, padded with the index R to whole chunks.
+    assert perm_r.shape == (-(-cfg.n_pixels // C) * C,)
+    assert bool(prim_r["hit"][perm_r[:n_live]].all())
+    # One chunk ran; every entry of every bounce holds its C lanes.
+    assert len(tapes[0]["chunks"]) == 1
+    for entries in tapes[0]["chunks"][0]:
         for e in entries:
-            assert e.shape == (n_live,)
+            assert e.shape == (C,)
     seen.clear()
     renderer.render_sample_playback(scene, cam, cfg, 1, tapes)
-    (prim_p, perm_p), = seen
+    (prim_p, perm_p, n_p), = seen
     assert torch.equal(prim_p["hit"], prim_r["hit"])
     assert torch.equal(prim_p["t"], prim_r["t"])
-    assert torch.equal(perm_p, perm_r)
+    assert torch.equal(perm_p, perm_r) and n_p == n_r
 
 
 def test_remat_keeps_values_and_grads():

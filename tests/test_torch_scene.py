@@ -166,6 +166,14 @@ def test_import_leaves_jax_out():
         "import dpt_tpu_torch.kernels.wide, dpt_tpu_torch.diff.grads\n"
         "import dpt_tpu_torch.diff.optimize, dpt_tpu_torch.utils.checkpoint\n"
         "import dpt_tpu_torch.kernels.intersect, dpt_tpu_torch.scene.obj\n"
+        "import dpt_tpu_torch.utils.native as N, dpt_tpu_torch.accel.bvh\n"
+        "import numpy as np\n"
+        "v = np.random.default_rng(0).normal(size=(3072, 3))\n"
+        "dpt_tpu_torch.accel.bvh.build_bvh_sah(\n"
+        "    v, np.arange(3072, dtype=np.int32).reshape(-1, 3))\n"
+        "assert N.calls['build_bvh_sah'] == int(N.available())\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'libdpt_native.so' not in maps, 'the JAX runtime is loaded'\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'dpt_tpu'))\n"

@@ -7,7 +7,10 @@ reference for its quad kernel (tests/test_pallas_quad.py holds quad ≡ brute),
 which avoids interpreting the Pallas kernel for a whole render.
 """
 
+import dataclasses
 import json
+import os
+import sys
 import types
 
 import numpy as np
@@ -169,3 +172,62 @@ def test_cli_default_device_needs_a_card(tmp_path, capsys):
     assert e.value.code != 0
     assert "--device cpu" in capsys.readouterr().err
     assert not (tmp_path / "x.png").exists()
+
+
+def test_cli_accepts_packet_tile(jx):
+    """A JAX command line with --packet-tile parses, and both CLIs make the
+    same config of it (the field has no effect in the port)."""
+    from dpt_tpu import cli as jcli
+
+    argv = ["render", "--preset", "sylveon512", "--width", "32",
+            "--packet-tile", "64", "--compact-frac", "0.0625"]
+    got = cli._make_cfg(cli._build_parser().parse_args(argv))
+    ref = jcli._make_cfg(jcli._build_parser().parse_args(argv))
+    assert got.packet_tile == 64
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+
+
+def test_exports_cover_jax(jx):
+    assert set(T.__all__) >= set(jx.pkg.__all__)
+    for name in T.__all__:
+        assert callable(getattr(T, name)) or name == "PRESETS", name
+
+
+@pytest.mark.parametrize("cards", [1, 4])
+def test_cli_sharded_spans_the_cards(monkeypatch, tmp_path, cards):
+    """--sharded on CUDA without --num-processes starts one rank per card
+    through dist/launch.run_ranks (each rank's argv: the command line plus
+    its multi-process options); with one card it renders in this process.
+    Nothing is started here: the card count is patched and run_ranks is
+    replaced."""
+    from dpt_tpu_torch.dist import launch
+
+    started = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(launch, "free_port", lambda: 29512)
+    monkeypatch.setattr(launch, "run_ranks", lambda cmds, timeout, env:
+                        started.append((cmds, env)) or ["ok\n"] * len(cmds))
+    argv = ["render", "--sharded", "--width", "16", "--height", "16",
+            "--out", str(tmp_path / "x.png")]
+    args = cli._build_parser().parse_args(argv)
+    assert cli._cards_to_span(args) == (cards if cards > 1 else 0)
+    assert cli._cards_to_span(cli._build_parser().parse_args(
+        argv + ["--device", "cpu"])) == 0
+    assert cli._cards_to_span(cli._build_parser().parse_args(
+        argv + ["--device", "cuda:0"])) == 0
+    if cards == 1:
+        return
+    assert cli.main(argv) == ["ok\n"] * cards
+    (cmds, env), = started
+    assert cmds == [[sys.executable, "-m", "dpt_tpu_torch.cli", *argv,
+                     "--num-processes", str(cards), "--process-id", str(r),
+                     "--coordinator", "localhost:29512"]
+                    for r in range(cards)]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(T.__file__)))
+    assert env["PYTHONPATH"].split(os.pathsep)[0] == root
+    # Each rank's command line is a complete multi-process set.
+    for r, cmd in enumerate(cmds):
+        a = cli._build_parser().parse_args(cmd[3:])
+        assert (a.num_processes, a.process_id) == (cards, r)
+        assert cli._cards_to_span(a) == 0
