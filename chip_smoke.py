@@ -2,7 +2,7 @@
 
     python chip_smoke.py
 
-Drives `dpt_tpu_torch` only (no JAX, no `dpt_tpu`), in nineteen phases, each
+Drives `dpt_tpu_torch` only (no JAX, no `dpt_tpu`), in twenty phases, each
 printing one line or more:
 
   1. device   — a CUDA card of compute capability 9.0; prints
@@ -110,10 +110,28 @@ printing one line or more:
                 torch.cuda.set_sync_debug_mode("warn") at compact_frac
                 0.125 and at 0, the synchronising calls counted by
                 file:line; the compacted batch may not have more.
+ 20. probes   — the walk probes (dpt_tpu_torch/probes/, csrc/probes/,
+                built at first use into their own library): P5 and P6
+                (interleave.cu) at P = 1, 2, 4, 8 and P2 (interleave2.cu)
+                A-D at P = 1 and 8, 64 steps, equal to their plain versions
+                on the card bit for bit, tiles and sink; P1 (smem_walk.cu)
+                in blocks of
+                128 and 1024 threads at every staged prefix (0 and the
+                ends of BFS levels 0-5) on two
+                126,621-ray flagship streams equal to K1's lane kernel and
+                the plain walk bit for bit.  Each probe is run once through
+                its public function with the launch counts set to 0 before
+                and read after; one timing line each (wrapper, kernel,
+                plain and bound, for the one-block probes also the bound of
+                the one SM that runs the block; P1 per prefix beside K1
+                lane, with blocks per SM).  The probes' launch counts are
+                set to 0 before phase 3 and read before phase 20: the
+                render, optimize and walk phases may launch no probe.
 
 Then one JSON line with the kernels (each with its design; for K1 and K2
 the primary stream's numbers, the other streams' under "_incoherent" and
-"_bounce"), and as the last line
+"_bounce"; the four probes with the launches of phase 20's run and, as
+"launches_main_path", those of phases 3-19), and as the last line
 `{"ok": true, "device": {...}}`.  Any failed phase raises, and the script
 exits non-zero without that last line.  Without a CUDA card it exits
 non-zero at phase 1.
@@ -173,6 +191,16 @@ KERNELS = {
                       "dpt_tpu/kernels/pallas_wide.py:209", 2),
     "intersect_nearest": ("dpt_tpu_torch/csrc/intersect_nearest.cu",
                           "dpt_tpu/kernels/pallas_intersect.py:42", 0),
+    # The walk probes (phase 20): P1 walks K1's tables, 4 slabs a record;
+    # P5, P6 and P2 take a slab pair a step.
+    "smem_walk": ("dpt_tpu_torch/csrc/probes/smem_walk.cu",
+                  "scripts/r3_smem_proto.py:34", 4),
+    "interleave": ("dpt_tpu_torch/csrc/probes/interleave.cu",
+                   "scripts/probe_interleave.py:34", 2),
+    "interleave_any": ("dpt_tpu_torch/csrc/probes/interleave.cu",
+                       "scripts/attic/probe_interleave_any.py:34", 2),
+    "interleave2": ("dpt_tpu_torch/csrc/probes/interleave2.cu",
+                    "scripts/attic/probe_interleave2.py:55", 2),
 }
 # kernel -> its design on the card, for the kernels line.
 DESIGNS = {
@@ -187,7 +215,24 @@ DESIGNS = {
         "memory"),
     "intersect_nearest": (
         "one thread per ray over every table row, broadcast loads"),
+    "smem_walk": (
+        "K1's lane walk (nearest), blocks of 128 or 1024 threads; the first "
+        "n_staged records (whole BFS levels) copied to dynamic shared memory "
+        "at block start, the rest and the leaf rows from global memory"),
+    "interleave": (
+        "one block of 1024 threads, one per tile element; P chains unrolled "
+        "in registers, each step a broadcast record load and a slab pair"),
+    "interleave_any": (
+        "the interleave kernel with the tile's any(hit) in the next index: "
+        "one __syncthreads_or per chain and step"),
+    "interleave2": (
+        "one block of 1024 threads; P chains unrolled, lhit / rhit by "
+        "__syncthreads_or, the chains' stacks in shared memory (every thread "
+        "writes the same word); a sink [P, 3] of final sp, top and mt8 ok "
+        "count"),
 }
+# The probes' steps (P5, P6, P2) at phase 20's check; their mains take 512.
+PROBE_ITERS = 64
 # The K3 stream of real table size: the procedural sphere of 3,720
 # triangles (465 table rows).
 K3_TRIS_TARGET = 4000
@@ -307,9 +352,13 @@ def kernel_device_ms(fns, inputs, kernel, windows=3):
     is over the launches it saw, and a window that saw none of a design's
     is taken again, up to `windows` times.  If every window missed a design
     (the profiler has dropped all of a kernel's launches on the card), the
-    calls are timed with CUDA events instead: events_device_ms."""
+    calls are timed with CUDA events instead (probes.launch_ms: events
+    around each call, all queued behind a sleep kernel, so each span is the
+    kernel and its wrapper's output fills)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from dpt_tpu_torch.probes import launch_ms
 
     for fn in fns.values():
         fn(*inputs[0])
@@ -333,28 +382,8 @@ def kernel_device_ms(fns, inputs, kernel, windows=3):
     print(f"[timing] profiler saw {seen} launches of {kernel} in {windows} "
           f"windows of {len(inputs)} calls; timed with CUDA events instead",
           flush=True)
-    return events_device_ms(fns, inputs)
-
-
-def events_device_ms(fns, inputs, sleep_cycles=50_000_000):
-    """Mean device time of one call per design, from CUDA events around
-    every input's call queued behind a sleep kernel (~25 ms), so the host
-    has queued them all before the device reaches the first: the span is
-    device work alone, the kernel and its wrapper's output fills."""
-    out = {}
-    for d, fn in fns.items():
-        fn(*inputs[0])
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(sleep_cycles)
-        start.record()
-        for args in inputs:
-            fn(*args)
-        end.record()
-        torch.cuda.synchronize()
-        out[d] = start.elapsed_time(end) / len(inputs)
-    return out
+    return {d: statistics.fmean(launch_ms(fn, inputs, n=len(inputs)))
+            for d, fn in fns.items()}
 
 
 def walk_module(kernel):
@@ -1553,6 +1582,249 @@ def phase_syncs(device):
     return sites
 
 
+def probe_bound(P, iters, stats, mt8_calls=0, tri_rows=0):
+    """(bound_ms, bound_by) of one P5 / P6 / P2 launch: the rays in, the
+    tiles and the sink out and the distinct records (64 B) and leaf rows
+    (512 B) read, over the HBM rate, against each element's slab pair and
+    add at every step of every chain, and FLOPS_PER_TRI_TEST for each slot
+    of each mt8 call, over the unfused float32 rate.  One block does it, so
+    the bound is a small share of the card by construction; sm_bound_ms
+    gives the bound of the one SM that runs the block."""
+    tile = 1024
+    nbytes = (P * 6 * 4 * tile + P * 4 * tile + P * 12
+              + 64 * stats["records"] + 512 * tri_rows)
+    flops = (P * iters * tile * (2 * FLOPS_PER_SLAB + 1)
+             + mt8_calls * tile * 8 * FLOPS_PER_TRI_TEST)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_F32_UNFUSED_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sm_bound_ms(bound_ms_by):
+    """The bound of a one-block probe on the one SM that runs its block:
+    the card's operations bound times the card's SMs (the bytes bound does
+    not scale so: one SM's share of HBM is not fixed)."""
+    ms, by = bound_ms_by
+    if by != "operations":
+        return None
+    return ms * torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def max_abs_err(pairs):
+    """Largest |a - b| over pairs of float tensors, 0 where a == b (equal
+    infinities count 0)."""
+    return max(float(torch.where(a == b, 0.0, (a.double() - b.double())
+                                 .abs()).max()) for a, b in pairs)
+
+
+def phase_probes(device, main_path_launches):
+    """The walk probes: each kernel against its plain version on the card,
+    bit for bit (P5, P6, P2: tiles and sink at PROBE_ITERS steps; P1 at
+    every staged prefix on the flagship's BOUNCE_RAYS stream, also against
+    K1's lane kernel), with the launches of one run through the probes'
+    public functions, and one timing line each.  `main_path_launches` are
+    the probes' launches in phases 3-19, which must be none."""
+    from dpt_tpu_torch import probes
+    from dpt_tpu_torch.accel.bvh import build_accel
+    from dpt_tpu_torch.config import preset
+    from dpt_tpu_torch.kernels import build, quad
+    from dpt_tpu_torch.probes import probe_interleave as p5
+    from dpt_tpu_torch.probes import probe_interleave2 as p2
+    from dpt_tpu_torch.probes import probe_interleave_any as p6
+    from dpt_tpu_torch.probes import r3_smem_proto as p1
+    from dpt_tpu_torch.scene.builder import procedural_scene
+
+    tag = "20 probes"
+    require(not any(main_path_launches.values()), f"[{tag}] phases 3-19 "
+            f"launched probes: {main_path_launches}")
+    t_phase = t0 = time.perf_counter()
+    build.load_probe_library()
+    print(f"[{tag}] probe library built in {build.build_seconds:.2f} s "
+          f"(load {time.perf_counter() - t0:.2f} s)", flush=True)
+
+    # Inputs: the TPU probes' tables (seed 0) and ray tiles; the flagship's
+    # tables and two 126,621-ray streams for P1.
+    rng = np.random.default_rng(0)
+    tables5 = [torch.as_tensor(t, device=device) for t in p5.node_tables(rng)]
+    rays5 = {P: [torch.as_tensor(r, device=device)
+                 for r in p5.ray_tiles(rng, P)] for P in p5.PS}
+    sets2 = [tuple(torch.as_tensor(x, device=device) for x in st)
+             for st in p2.tables(rng)]
+    rays2 = {P: [torch.as_tensor(r, device=device)
+                 for r in p5.ray_tiles(rng, P)] for P in p2.PS}
+    cfg = preset("sylveon512", width=1024, height=1024, traversal="quad")
+    scene = procedural_scene(FLAGSHIP_TRIS_TARGET, device=device)
+    accel = build_accel(scene, cfg)
+    prefixes = p1.staged_prefixes(accel)
+    bounce = [incoherent_rays(scene, BOUNCE_RAYS, 500 + k, device)[:2]
+              for k in range(2)]
+    chains = {("interleave", P): (p5.make(P, PROBE_ITERS), P)
+              for P in p5.PS}
+    chains.update({("interleave_any", P): (p6.make(P, PROBE_ITERS), P)
+                   for P in p5.PS})
+    steps = {(v, P): p2.make(P, v, PROBE_ITERS)
+             for v in p2.VARIANTS for P in p2.PS}
+
+    # The probes' path: every probe through its public function, the
+    # launch counts set to 0 just before and read just after.
+    probes.reset_launch_counts()
+    out5 = {k: go(tables5[0], *rays5[P]) for k, (go, P) in chains.items()}
+    out2 = {k: go(*sets2[0], *rays2[k[1]]) for k, go in steps.items()}
+    out1 = [{(b, s): p1.smem_nearest(o, d, accel, s, b)
+             for b in p1.BLOCKS for s in prefixes} for o, d in bounce]
+    torch.cuda.synchronize()
+    launches = dict(probes.launch_counts)
+    want = {"interleave": len(p5.PS), "interleave_any": len(p5.PS),
+            "interleave2": len(steps),
+            "smem_walk": len(p1.BLOCKS) * len(prefixes) * len(bounce)}
+    require(launches == want, f"[{tag}] probe launches {launches}, want "
+            f"{want}")
+
+    # Each against its plain version on the card, bit for bit; each
+    # probe's max_abs_err over the float outputs it compared.
+    stats = {}
+    compared = {name: [] for name in launches}
+    for (name, P), (tiles, sink) in out5.items():
+        st = {}
+        acc, ref_sink = p5.interleave_reference(
+            tables5[0], p5.pack_rays(P, rays5[P]), PROBE_ITERS,
+            name == "interleave_any", stats=st)
+        got = torch.stack(tiles).reshape(P, -1)
+        require(torch.equal(got, acc) and torch.equal(sink, ref_sink),
+                f"[{tag}] {name} P={P} differs from its plain version")
+        compared[name].append((got, acc))
+        stats[name, P] = st
+    for (v, P), (tiles, sink) in out2.items():
+        st = {}
+        acc, ref_sink = p2.interleave2_reference(
+            *sets2[0], p5.pack_rays(P, rays2[P]), v, PROBE_ITERS, stats=st)
+        got = torch.stack(tiles).reshape(P, -1)
+        require(torch.equal(got, acc) and torch.equal(sink, ref_sink),
+                f"[{tag}] interleave2 {v} P={P} differs from its plain "
+                "version")
+        compared["interleave2"].append((got, acc))
+        stats[v, P] = st
+    walk_stats = {}
+    for k, (o, d) in enumerate(bounce):
+        md = torch.zeros((o.shape[0],), dtype=torch.float32, device=device)
+        pt, pi = quad._walk_reference(o, d, md, accel, False,
+                                      quad.KERNEL_STACK,
+                                      walk_stats if k == 0 else None)
+        kt, ki = quad._launch(o, d, None, accel, False, "lane")
+        torch.cuda.synchronize()
+        for (b, s), (t, tri) in out1[k].items():
+            require(torch.equal(t, pt) and torch.equal(tri, pi)
+                    and torch.equal(t, kt) and torch.equal(tri, ki),
+                    f"[{tag}] smem_walk block {b} n_staged={s} differs from "
+                    "K1 lane or the plain walk")
+            compared["smem_walk"] += [(t, pt), (t, kt)]
+    errs = {name: max_abs_err(pairs) for name, pairs in compared.items()}
+    attrs = {(b, s): p1.attributes(s, b) for b in p1.BLOCKS
+             for s in prefixes}
+    print(f"[{tag}] exact: P5 and P6 at P {p5.PS}, P2 A-D at P {p2.PS}, "
+          f"{PROBE_ITERS} steps, tiles and sink; "
+          f"P1 in blocks of {p1.BLOCKS} at n_staged {prefixes} (level "
+          f"starts {p1.level_starts(accel)[:8]}) on {len(bounce)} x "
+          f"{BOUNCE_RAYS} rays = K1 lane = plain walk; registers/local "
+          "bytes/blocks per SM "
+          + ", ".join(f"{b}/{s}: {a['num_regs']}/{a['local_bytes']}/"
+                      f"{a['blocks_per_sm']}" for (b, s), a in attrs.items())
+          + f"; launches {launches}; max_abs_err {errs}", flush=True)
+
+    # Timing: the wrapper (CUDA events, median), the kernel (events behind
+    # a sleep, median), the plain version on the card (median), the bound.
+    entries = {}
+
+    def timed(name, label, call, kernel, plain, inputs, bound_ms_by,
+              **extra):
+        kms = statistics.median(probes.launch_ms(kernel, inputs, n=10))
+        m = {"ms": median_ms(call, inputs), "kernel_ms": kms,
+             "plain_ms": median_ms(plain, inputs[:2]),
+             "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1],
+             "max_abs_err": errs[name], "config": label}
+        one_sm = ""
+        if name != "smem_walk":
+            m["bound_sm_ms"] = sm_bound_ms(bound_ms_by)
+            one_sm = "; one block" + (
+                "" if m["bound_sm_ms"] is None else
+                f", on its SM {m['bound_sm_ms']:.6f} ms, "
+                f"{100 * m['bound_sm_ms'] / kms:.3g}% of the kernel")
+        m.update(extra)
+        print(f"[{tag}] {name} {label}: {m['ms']:.4f} ms (kernel "
+              f"{kms:.4f}, plain {m['plain_ms']:.3f}, bound "
+              f"{m['bound_ms']:.6f} by {m['bound_by']}, "
+              f"{100 * m['bound_ms'] / kms:.3g}% of the kernel{one_sm})"
+              + "".join(f", {k} {v}" for k, v in extra.items()),
+              flush=True)
+        entries[name] = m
+
+    packed5 = {P: p5.pack_rays(P, r) for P, r in rays5.items()}
+    packed2 = {P: p5.pack_rays(P, r) for P, r in rays2.items()}
+    for name in ("interleave", "interleave_any"):
+        anyi = name == "interleave_any"
+        P = max(p5.PS)
+        per_p = {f"kernel_ms_P{q}": statistics.median(probes.launch_ms(
+            lambda n, q=q: p5.launch(n, packed5[q], PROBE_ITERS, anyi),
+            [(t,) for t in tables5], n=8)) for q in p5.PS}
+        timed(name, f"P={P}, {PROBE_ITERS} steps",
+              lambda n: chains[name, P][0](n, *rays5[P]),
+              lambda n: p5.launch(n, packed5[P], PROBE_ITERS, anyi),
+              lambda n: p5.interleave_reference(n, packed5[P], PROBE_ITERS,
+                                                anyi),
+              [(t,) for t in tables5],
+              probe_bound(P, PROBE_ITERS, stats[name, P]), **per_p)
+    P = max(p2.PS)
+    st = stats["D", P]
+    per_v = {f"kernel_ms_{v}_P{q}": statistics.median(probes.launch_ms(
+                 lambda n, t, v=v, q=q: p2.launch(n, t, packed2[q], v,
+                                                  PROBE_ITERS),
+                 sets2, n=8))
+             for v in p2.VARIANTS for q in p2.PS}
+    timed("interleave2", f"D, P={P}, {PROBE_ITERS} steps",
+          lambda n, t: steps["D", P](n, t, *rays2[P]),
+          lambda n, t: p2.launch(n, t, packed2[P], "D", PROBE_ITERS),
+          lambda n, t: p2.interleave2_reference(n, t, packed2[P], "D",
+                                                PROBE_ITERS),
+          sets2, probe_bound(P, PROBE_ITERS, st, st["mt8_calls"],
+                             st["tri_rows"]), **per_v)
+    per_s = {f"kernel_ms_block{b}_staged_{s}": statistics.median(
+        probes.launch_ms(lambda o, d, s=s, b=b: p1.launch(o, d, accel, s, b),
+                         bounce, n=6))
+        for b in p1.BLOCKS for s in prefixes}
+    per_s["kernel_ms_k1_lane"] = statistics.median(probes.launch_ms(
+        lambda o, d: quad._launch(o, d, None, accel, False, "lane"), bounce,
+        n=6))
+    per_s["blocks_per_sm"] = {f"{b}/{s}": a["blocks_per_sm"]
+                              for (b, s), a in attrs.items()}
+    best_b, best = min(((b, s) for b in p1.BLOCKS for s in prefixes),
+                       key=lambda k: per_s[f"kernel_ms_block{k[0]}_staged_"
+                                           f"{k[1]}"])
+    timed("smem_walk", f"{BOUNCE_RAYS} rays, block {best_b}, "
+          f"n_staged={best} (the fastest)",
+          lambda o, d: p1.smem_nearest(o, d, accel, best, best_b),
+          lambda o, d: p1.launch(o, d, accel, best, best_b),
+          lambda o, d: p1.smem_nearest_reference(o, d, accel), bounce,
+          bound("smem_walk", False, BOUNCE_RAYS, walk_stats, accel), **per_s)
+    print(f"[{tag}] took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, entries
+
+
+def probe_entries(launches, main_path_launches, entries):
+    """The kernels-line entries of the four probes: launches from the
+    probes' path run (phase 20), launches_main_path from phases 3-19, the
+    rest from the timed configuration."""
+    out = []
+    for name, m in entries.items():
+        source, replaces, _ = KERNELS[name]
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "design": DESIGNS[name],
+                    "launches": launches[name],
+                    "launches_main_path": main_path_launches[name],
+                    "library_ms": None, **m})
+    return out
+
+
 # Per-stream numbers each kernels-line entry carries: the primary stream's
 # under these names, every other stream's with "_<stream>" appended.
 ENTRY_KEYS = ("ms", "kernel_ms", "kernel_ms_lane", "kernel_ms_group",
@@ -1589,6 +1861,9 @@ def kernel_entries(kernel, stats, launches, **extra):
 def main():
     phase_device()
     device = torch.device("cuda", 0)
+    from dpt_tpu_torch import probes
+
+    probes.reset_launch_counts()
     phase_build()
     k1 = phase_kernel(device, "quad", "quad_traverse", "3 K1")
     k2 = phase_kernel(device, "pallas", "wide_traverse", "4 K2")
@@ -1611,9 +1886,12 @@ def main():
         phase_native(tmp)
         capacity_counts, _ = phase_capacity(device)
         phase_syncs(device)
+    main_path_probe_launches = dict(probes.launch_counts)
+    probe_launches, probe_stats = phase_probes(device,
+                                               main_path_probe_launches)
 
-    # No PyTorch call computes a BVH walk or the brute-force nearest hit,
-    # so library_ms is null.
+    # No PyTorch call computes a BVH walk, the brute-force nearest hit or a
+    # probe's chains, so library_ms is null.
     per_rank = {f"launches_sharded_rank{r}": c
                 for r, c in enumerate(sharded_counts)}
     per_rank.update({f"launches_sharded_optimize_rank{r}": c
@@ -1628,7 +1906,9 @@ def main():
                + kernel_entries("wide_traverse", k2, wide_counts)
                + kernel_entries("intersect_nearest",
                                 {s: {"nearest": v} for s, v in k3.items()},
-                                box_counts))
+                                box_counts)
+               + probe_entries(probe_launches, main_path_probe_launches,
+                               probe_stats))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,0 +1,84 @@
+// Device helpers shared by the walk probes (the H100 forms of the TPU
+// probes under scripts/): the interleaved pointer-chase chains P5 / P6
+// (interleave.cu) and the walk-step variants P2 (interleave2.cu), whose
+// step is a dependent record load, a slab pair, and the next index; P1
+// (smem_walk.cu) takes K1's helpers from traverse_common.cuh.
+//
+// The chains' tables are the TPU probes' `nodes` [1024, 128] f32, read as
+// 8192 records of 16 floats: the TPU probe loads row rid // 8 and rolls
+// record rid % 8 to lanes 0-15 (`pltpu.roll(row, -(rid % 8) * 16)`), which
+// on the card is one load of record rid.  Their rays are the [8, 128] ray
+// tiles, one thread per element, 1024 threads a block.
+#pragma once
+
+#include "../traverse_common.cuh"
+
+namespace dpt {
+namespace probe {
+
+// One block computes one [8, 128] tile, one thread per element.
+constexpr int kTile = 1024;
+// Records of 16 floats in the node table ([1024, 128] f32).
+constexpr int kRecords = 8192;
+
+// Python's (and jnp's) floor mod of an int32: CUDA's % truncates, and
+// trunc(field) + rid may be negative.
+__device__ __forceinline__ int floor_mod(int a, int m) {
+  return ((a % m) + m) % m;
+}
+
+// The probes' inverse direction 1 / where(|d| < 1e-20, 1e-20, d): unlike
+// K1's safe_inv, a tiny negative component becomes +1e20.
+__device__ __forceinline__ float probe_inv(float d) {
+  return 1.0f / (fabsf(d) < kTiny ? kTiny : d);
+}
+
+// The ray of element `i` of chain p's six [8, 128] tiles
+// (rays[p][0..5][1024]: ox oy oz dx dy dz).
+__device__ __forceinline__ Ray load_tile_ray(const float* __restrict__ rays,
+                                             int p, int i) {
+  const float* r = rays + static_cast<size_t>(p) * 6 * kTile + i;
+  Ray ray;
+  ray.ox = __ldg(r + 0 * kTile);
+  ray.oy = __ldg(r + 1 * kTile);
+  ray.oz = __ldg(r + 2 * kTile);
+  ray.dx = __ldg(r + 3 * kTile);
+  ray.dy = __ldg(r + 4 * kTile);
+  ray.dz = __ldg(r + 5 * kTile);
+  ray.ix = probe_inv(ray.dx);
+  ray.iy = probe_inv(ray.dy);
+  ray.iz = probe_inv(ray.dz);
+  return ray;
+}
+
+// Record `rid` (16 floats): the same address for every thread of the
+// block, so each of the four 16-byte loads is one broadcast.
+__device__ __forceinline__ void load_record(const float4* __restrict__ nodes,
+                                            int rid, float (&f)[16]) {
+  const float4* p = nodes + 4 * static_cast<size_t>(rid);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 v = __ldg(p + q);
+    f[4 * q + 0] = v.x;
+    f[4 * q + 1] = v.y;
+    f[4 * q + 2] = v.z;
+    f[4 * q + 3] = v.w;
+  }
+}
+
+// The probes' `aabb` pair: the slabs of the boxes at fields 0-5 (left) and
+// 6-11 (right), in the TPU probes' order (K1's slab test).
+__device__ __forceinline__ void slab_pair(const float (&f)[16], const Ray& r,
+                                          float& ltn, float& ltf, float& rtn,
+                                          float& rtf) {
+  slab(f, 0, r, ltn, ltf);
+  slab(f, 6, r, rtn, rtf);
+}
+
+// jnp.any over the block's tile: a barrier of all kTile threads.
+__device__ __forceinline__ bool block_any(bool pred) {
+  return __syncthreads_or(pred) != 0;
+}
+
+}  // namespace probe
+}  // namespace dpt

@@ -10,6 +10,12 @@ no `nvcc`, and a build happens only when a CUDA tensor reaches a kernel
 wrapper.  `launch_walk` calls a BVH walk kernel (K1 in either design,
 K2) through its C interface, `launch_intersect` the brute-force search (K3).
 
+The walk probes (csrc/probes/*.cu, the H100 forms of the TPU probes under
+scripts/) build the same way into a second library,
+`libdpt_probes_<hash>.so` (`load_probe_library`), at first use by a probe
+module (dpt_tpu_torch/probes/); the render's library and its hash do not
+include them.
+
 `-fmad=false` keeps every multiply and add separately rounded, so a kernel
 and its plain PyTorch version (separate elementwise ops) agree exactly on
 the card.
@@ -29,6 +35,7 @@ import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
+PROBE_CSRC = CSRC / "probes"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -51,8 +58,9 @@ KERNEL_MODES = {**{k: ("nearest", "occluded") for k in WALKS},
                 INTERSECT: ("nearest",)}
 
 _lib = None
-# Wall seconds the last call to `load_library` spent compiling (0.0 when the
-# library was already built or loaded).
+_probe_lib = None
+# Wall seconds the last call to `build` spent compiling (0.0 when the
+# library was already built).
 build_seconds = 0.0
 
 
@@ -74,16 +82,25 @@ def find_nvcc() -> str:
 
 
 def _sources():
+    """The render library's sources: csrc/*.cu and csrc/*.cuh."""
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def library_path() -> pathlib.Path:
+def _probe_sources():
+    """The probe library's sources, and the header they include."""
+    return (sorted(PROBE_CSRC.glob("*.cu")) + sorted(PROBE_CSRC.glob("*.cuh"))
+            + [CSRC / "traverse_common.cuh"])
+
+
+def library_path(stem="libdpt_tpu_torch", sources=None) -> pathlib.Path:
+    """`_build/<stem>_<hash>.so`, keyed by the sources (default: the render
+    library's) and the flags."""
     h = hashlib.sha256()
-    for p in _sources():
+    for p in _sources() if sources is None else sources:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libdpt_tpu_torch_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
 def _run(cmds):
@@ -98,18 +115,20 @@ def _run(cmds):
             raise RuntimeError(f"nvcc failed ({rc}): {' '.join(c)}\n{text}")
 
 
-def build() -> pathlib.Path:
-    """Compile csrc/*.cu into the keyed library unless it exists: one nvcc
-    per source, all started together, then one link."""
+def build(stem="libdpt_tpu_torch", sources=None) -> pathlib.Path:
+    """Compile the .cu files of `sources` (default: the render library's,
+    csrc/*.cu) into the keyed library unless it exists: one nvcc per
+    source, all started together, then one link."""
     global build_seconds
-    out = library_path()
+    sources = _sources() if sources is None else sources
+    out = library_path(stem, sources)
     build_seconds = 0.0
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     tag = f"{out.stem}.{os.getpid()}"
-    srcs = [p for p in _sources() if p.suffix == ".cu"]
+    srcs = [p for p in sources if p.suffix == ".cu"]
     objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in srcs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
@@ -149,6 +168,29 @@ def load_library() -> ctypes.CDLL:
     lib.dpt_cuda_error_string.argtypes = [i]
     lib.dpt_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib
+    return lib
+
+
+def load_probe_library() -> ctypes.CDLL:
+    """The walk probes' library (csrc/probes/*.cu), with argtypes declared
+    (built on first call)."""
+    global _probe_lib
+    if _probe_lib is not None:
+        return _probe_lib
+    lib = ctypes.CDLL(str(build("libdpt_probes", _probe_sources())))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ip = ctypes.POINTER(i)
+    for name, args in (
+            ("dpt_quad_traverse_smem", [p, p, p, p, i, i, i, p, p, p]),
+            ("dpt_quad_traverse_smem_attrs", [i, i, ip, ip, ip]),
+            ("dpt_probe_interleave", [p, p, i, i, i, p, p, p]),
+            ("dpt_probe_interleave2", [p, p, p, i, i, i, p, p, p])):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = i
+    lib.dpt_cuda_error_string.argtypes = [i]
+    lib.dpt_cuda_error_string.restype = ctypes.c_char_p
+    _probe_lib = lib
     return lib
 
 
@@ -219,7 +261,7 @@ def launch_walk(kernel, origin, direction, max_dist, nodes, tris,
         ctypes.c_int(int(occluded)), ptr(out_t), ptr(out_i),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
-    _check_launch(lib, kernel, err)
+    check_launch(lib, kernel, err)
     return out_t, out_i
 
 
@@ -243,11 +285,12 @@ def launch_intersect(origin, direction, tris, eps: float):
         ctypes.c_void_p(out_t.data_ptr()), ctypes.c_void_p(out_i.data_ptr()),
         ctypes.c_void_p(stream),
     )
-    _check_launch(lib, INTERSECT, err)
+    check_launch(lib, INTERSECT, err)
     return out_t, out_i
 
 
-def _check_launch(lib, kernel, err):
+def check_launch(lib, kernel, err):
+    """Raise unless a launch through `lib` returned cudaSuccess."""
     if err != 0:
         raise RuntimeError(
             f"{kernel} launch failed: cudaError {err} "

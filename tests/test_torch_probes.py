@@ -1,0 +1,403 @@
+"""dpt_tpu_torch walk probes ≡ the JAX probe scripts they port.
+
+  - P5 (`probe_interleave`) and P6 (`probe_interleave_any`): the plain
+    version against the JAX probe at 16 steps, P = 1 and 2, allclose at
+    rtol 1e-6, atol 1e-6 (bit-equal here).
+  - P2 (`probe_interleave2`): variants A-D at P = 1 and 2; A allclose as
+    above, B-D exactly zero in both packages; the sink (final sp, top of
+    the stack, mt8 ok count) against a per-chain scalar loop.
+  - P1 (`r3_smem_proto`): the plain walk against `smem_nearest` on a
+    400-triangle procedural scene (SAH leaf 8, the JAX tables carried
+    across) at 16² rays: t allclose at rtol 1e-6 after min(t, T_MAX), tri
+    exact on a stream without equal-t ties; the host's level starts.
+
+The probe modules' imports (no jax, no dpt_tpu; the render path imports
+no probe) are checked with the package's, in
+tests/test_torch_scene.py::test_import_leaves_jax_out.
+
+The JAX probes run as they stand, on the CPU: P1 interprets on its own,
+P5, P6 and P2 through `pallas_call(..., interpret=True)` and ITERS = 16,
+patched in for the module.  Each JAX probe runs once, at P = 2, and its
+chains are independent, so chain 0 is the probe at P = 1 on the first six
+ray tiles: the port at P = 1 is held against it, and at P = 2 against
+both chains.  Tests marked `cuda` compare each kernel with its plain
+version on the card, bit for bit; they skip without one.
+"""
+
+import functools
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from dpt_tpu_torch.kernels.quad import _leaf_tests
+from dpt_tpu_torch.probes import probe_interleave as tp5
+from dpt_tpu_torch.probes import probe_interleave2 as tp2
+from dpt_tpu_torch.probes import probe_interleave_any as tp6
+from dpt_tpu_torch.probes import r3_smem_proto as tp1
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+ITERS = 16
+# probe name -> (JAX script, port module)
+INTERLEAVE = {
+    "P5": ("scripts/probe_interleave.py", tp5),
+    "P6": ("scripts/attic/probe_interleave_any.py", tp6),
+}
+
+
+def _script(rel):
+    spec = importlib.util.spec_from_file_location(
+        "jax_" + pathlib.Path(rel).stem, ROOT / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def jax_probe():
+    """jax_probe(script, *make_args) -> the JAX probe's P = 2 tiles on its
+    inputs (`_INPUTS`), with the probe's pallas_call in interpret mode and
+    ITERS steps; each (script, make_args) runs once for the module."""
+    pytest.importorskip("jax")
+    from jax.experimental import pallas as pl
+
+    runs = {}
+
+    def run(rel, *make_args):
+        if (rel, make_args) not in runs:
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(pl, "pallas_call",
+                           functools.partial(pl.pallas_call, interpret=True))
+                mod = _script(rel)
+                mp.setattr(mod, "ITERS", ITERS)
+                runs[rel, make_args] = _jax_tiles(
+                    mod.make(2, *make_args), *_INPUTS[rel]())
+        return runs[rel, make_args]
+
+    return run
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _interleave_inputs(P, seed=0):
+    rng = np.random.default_rng(seed)
+    return tp5.node_tables(rng)[0], tp5.ray_tiles(rng, P)
+
+
+def _interleave2_inputs(P, seed=0):
+    rng = np.random.default_rng(seed)
+    nodes, tris = tp2.tables(rng)[0]
+    rays = [rng.normal(size=(8, 128)).astype(np.float32)
+            for _ in range(P * 6)]
+    return nodes, tris, rays
+
+
+def _jax_tiles(go, *arrays):
+    import jax.numpy as jnp
+
+    return [np.asarray(x) for x in go(*(jnp.asarray(a) for a in arrays))]
+
+
+def _jax_inputs_interleave():
+    nodes, rays = _interleave_inputs(2, seed=2)
+    return (nodes, *rays)
+
+
+def _jax_inputs_interleave2():
+    nodes, tris, rays = _interleave2_inputs(2, seed=12)
+    return (nodes, tris, *rays)
+
+
+# JAX script -> its inputs at P = 2 (the tables, then 12 ray tiles)
+_INPUTS = {
+    "scripts/probe_interleave.py": _jax_inputs_interleave,
+    "scripts/attic/probe_interleave_any.py": _jax_inputs_interleave,
+    "scripts/attic/probe_interleave2.py": _jax_inputs_interleave2,
+}
+
+
+@pytest.mark.parametrize("P", [1, 2])
+@pytest.mark.parametrize("probe", sorted(INTERLEAVE))
+def test_interleave_matches_jax(jax_probe, probe, P):
+    script, port = INTERLEAVE[probe]
+    nodes, *rays = _INPUTS[script]()
+    rays = rays[:6 * P]
+    want = jax_probe(script)[:P]
+    tiles, sink = port.make(P, iters=ITERS)(
+        torch.as_tensor(nodes), *map(torch.as_tensor, rays))
+    assert len(want) == len(tiles) == P
+    for w, got in zip(want, tiles):
+        assert np.abs(w).max() > 0
+        np.testing.assert_allclose(got.numpy(), w, rtol=1e-6, atol=1e-6)
+    # the sink holds each chain's final record
+    assert sink[:, 0].eq(0).all() and sink[:, 2].eq(0).all()
+    assert ((sink[:, 1] >= 0) & (sink[:, 1] < tp5.N_RECORDS)).all()
+
+
+def _mt8_ok(trow, o, d):
+    """Count of the probe's Möller–Trumbore tests of the tile rays against
+    the 8 slots of one leaf row that are ok, in float32 numpy, in the
+    probe's order of operations."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    n = 0
+    for f in trow:
+        e1x, e1y, e1z, e2x, e2y, e2z = f[3:9]
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        inv = np.float32(1) / np.where(np.abs(det) < np.float32(1e-6),
+                                       np.float32(1), det)
+        tx, ty, tz = ox - f[0], oy - f[1], oz - f[2]
+        u = inv * (tx * px + ty * py + tz * pz)
+        qx = ty * e1z - tz * e1y
+        qy = tz * e1x - tx * e1z
+        qz = tx * e1y - ty * e1x
+        v = inv * (dx * qx + dy * qy + dz * qz)
+        t = inv * (e2x * qx + e2y * qy + e2z * qz)
+        n += int(((u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1)
+                  & (t > np.float32(1e-6))).sum())
+    return n
+
+
+def _chain_sink(nodes, tris, rays, variant):
+    """The sink of each chain (final sp, top of the stack, mt8 ok count) by
+    a scalar loop over one chain's steps in float32 numpy: the stack logic
+    spelled out one chain at a time."""
+    table = nodes.reshape(-1, 16)
+    trows = tris.reshape(-1, 8, 16)
+    P = len(rays) // 6
+    out = []
+    for p in range(P):
+        o = [rays[6 * p + k].reshape(-1) for k in range(3)]
+        d = [rays[6 * p + 3 + k].reshape(-1) for k in range(3)]
+        inv = [np.float32(1) / np.where(np.abs(x) < 1e-20, np.float32(1e-20),
+                                        x) for x in d]
+        stack = [0] * 32
+        stack[0] = 7 * p + 1
+        sp, n_ok = 1, 0
+        with np.errstate(all="ignore"):
+            for _ in range(ITERS):
+                spm = max(sp - 1, 0)
+                rid = stack[0 if variant == "A" else spm]
+                rec = table[rid]
+
+                def box(b):
+                    tn = np.full_like(o[0], -np.inf)
+                    tf = np.full_like(o[0], np.inf)
+                    for k in range(3):
+                        t0 = (rec[b + k] - o[k]) * inv[k]
+                        t1 = (rec[b + 3 + k] - o[k]) * inv[k]
+                        tn = np.maximum(tn, np.minimum(t0, t1))
+                        tf = np.minimum(tf, np.maximum(t0, t1))
+                    return bool(((tn <= tf) & (tf >= 0)).any())
+
+                lhit, rhit = box(0), box(6)
+                lptr = (int(rec[12]) + rid) % tp2.N_RECORDS
+                rptr = (int(rec[13]) + rid) % tp2.N_RECORDS
+                if variant == "A":
+                    stack[0] = lptr if lhit else rptr
+                    continue
+                if variant == "D" or (variant == "C" and rec[14] > 0
+                                      and lhit):
+                    n_ok += _mt8_ok(trows[rid % 512], o, d)
+                if lhit and rhit:
+                    stack[spm], stack[spm + 1] = lptr, rptr
+                elif lhit or rhit:
+                    stack[spm] = lptr if lhit else rptr
+                sp = max(min(spm + lhit + rhit, 30), 1)
+        top = stack[0 if variant == "A" else max(sp - 1, 0)]
+        out.append((sp, top, n_ok))
+    return np.array(out)
+
+
+@pytest.mark.parametrize("P", [1, 2])
+@pytest.mark.parametrize("variant", tp2.VARIANTS)
+def test_interleave2_matches_jax(jax_probe, variant, P):
+    script = "scripts/attic/probe_interleave2.py"
+    nodes, tris, *rays = _INPUTS[script]()
+    rays = rays[:6 * P]
+    want = jax_probe(script, variant)[:P]
+    tiles, sink = tp2.make(P, variant, iters=ITERS)(
+        torch.as_tensor(nodes), torch.as_tensor(tris),
+        *map(torch.as_tensor, rays))
+    assert len(want) == len(tiles) == P
+    for w, got in zip(want, tiles):
+        if variant == "A":
+            assert np.abs(w).max() > 0
+            np.testing.assert_allclose(got.numpy(), w, rtol=1e-6, atol=1e-6)
+        else:
+            # B never adds to its accumulator; C and D take t only where
+            # t < acc and t > 1e-6, which cannot happen from acc = 0.
+            assert not np.any(w) and not got.any()
+    np.testing.assert_array_equal(sink.numpy(),
+                                  _chain_sink(nodes, tris, rays, variant))
+    if variant in ("C", "D"):
+        # mt8 ran and found ok slots (C's branch may skip a chain)
+        assert sink[:, 2].sum() > 0
+
+
+def _primary_rays():
+    """The port's 16² primary stream of the default camera."""
+    from dpt_tpu_torch import OrbitCamera, RenderConfig
+    from dpt_tpu_torch.render.raygen import generate_rays
+
+    o, d, _ = generate_rays(OrbitCamera().camera("cpu"),
+                            RenderConfig(width=16, height=16), 0)
+    return o, d
+
+
+@pytest.fixture(scope="module")
+def port_tables():
+    """The port's tables of the 400-triangle procedural scene (SAH leaf
+    8), which are the JAX package's byte for byte (test_torch_quad.py)."""
+    from dpt_tpu_torch import RenderConfig, procedural_scene
+    from dpt_tpu_torch.accel.bvh import build_accel
+
+    cfg = RenderConfig(traversal="quad", bvh_builder="sah", bvh_leaf_size=8)
+    return build_accel(procedural_scene(n_tris_target=400, device="cpu"),
+                       cfg)
+
+
+@pytest.fixture(scope="module")
+def jax_tables():
+    """The same scene's tables built by the JAX package, and carried into
+    the port."""
+    pytest.importorskip("jax")
+    import dpt_tpu
+    from dpt_tpu.accel.bvh import build_accel
+
+    from dpt_tpu_torch.utils.convert import quad_accel_from_arrays
+
+    cfg = dpt_tpu.RenderConfig(width=16, height=16, traversal="quad",
+                               bvh_builder="sah", bvh_leaf_size=8,
+                               packet_tile=256, interleave=1)
+    accel = build_accel(dpt_tpu.procedural_scene(n_tris_target=400), cfg)
+    port = quad_accel_from_arrays(np.asarray(accel.nodes_flat),
+                                  np.asarray(accel.tris), accel.n_wide,
+                                  accel.max_depth, device="cpu")
+    return accel, cfg, port
+
+
+def test_smem_walk_matches_jax(jax_tables):
+    jax_accel, cfg, port = jax_tables
+    ot, od = _primary_rays()
+    jp1 = _script("scripts/r3_smem_proto.py")
+    jt, jtri = jp1.smem_nearest(ot.numpy(), od.numpy(),
+                                np.asarray(jax_accel.nodes).reshape(-1),
+                                jax_accel.tris, cfg.packet_tile,
+                                cfg.bvh_stack_depth)
+    jt, jtri = np.asarray(jt), np.asarray(jtri)
+    # no equal-t ties on this stream (the TPU probe's tile octant and the
+    # port's per-ray octant may break a tie apart): a brute-force test of
+    # every slot finds one nearest triangle per hit ray
+    slots = port.tris.reshape(1, -1, 16)
+    bh, bt, _ = _leaf_tests(ot, od, slots)
+    bt = torch.where(bh, bt, torch.full_like(bt, float("inf")))
+    nearest = bt.min(dim=1, keepdim=True).values
+    hit = torch.isfinite(nearest[:, 0])
+    assert int(hit.sum()) >= 20
+    assert ((bt == nearest) & hit[:, None]).sum(dim=1).le(1).all()
+    for n_staged in tp1.staged_prefixes(port):
+        t, tri = tp1.smem_nearest(ot, od, port, n_staged)
+        np.testing.assert_allclose(t.numpy(), np.minimum(jt, tp1.T_MAX),
+                                   rtol=1e-6)
+        np.testing.assert_array_equal(t.numpy() < tp1.T_MAX, hit.numpy())
+        np.testing.assert_array_equal(tri.numpy(), jtri)
+
+
+def _bfs_levels(port):
+    """Levels by a plain breadth-first walk over each record's children."""
+    rec = port.nodes_flat.reshape(-1, 32).numpy()
+    levels, frontier = [], [0]
+    while frontier:
+        levels.append(frontier)
+        frontier = [int(rec[r, 24 + s]) for r in frontier for s in range(4)
+                    if not np.isnan(rec[r, 6 * s]) and rec[r, 24 + s] >= 0]
+    return levels
+
+
+def test_level_starts(port_tables):
+    port = port_tables
+    starts = tp1.level_starts(port)
+    levels = _bfs_levels(port)
+    assert len(starts) == len(levels) + 1
+    assert starts[-1] == port.n_wide
+    for k, lev in enumerate(levels):
+        assert lev == list(range(starts[k], starts[k + 1]))
+    rec = port.nodes_flat.reshape(-1, 32).numpy()
+    for k in range(len(levels) - 1):
+        # every record above level k's end points only below level k+1's
+        sub = rec[:starts[k + 1]]
+        live = ~np.isnan(sub[:, 0:24:6]) & (sub[:, 24:28] >= 0)
+        assert (sub[:, 24:28][live] < starts[k + 2]).all()
+    assert tp1.staged_prefixes(port) == [0] + sorted(set(starts[1:7]))
+    with pytest.raises(ValueError):
+        tp1.smem_nearest(torch.zeros(1, 3), torch.ones(1, 3), port,
+                         port.n_wide + 1)
+    with pytest.raises(ValueError):
+        tp1.smem_nearest(torch.zeros(1, 3), torch.ones(1, 3), port, 0, 256)
+
+
+def test_level_starts_refuse_other_orders(port_tables):
+    """A table whose records are not in level order is refused: the root's
+    first two child pointers swapped."""
+    import dataclasses
+
+    port = port_tables
+    rec = port.nodes_flat.reshape(-1, 32).clone()
+    assert (rec[0, 24:26] >= 0).all()
+    rec[0, 24:26] = rec[0, 24:26].flip(0)
+    bad = dataclasses.replace(port, nodes_flat=rec.reshape(-1))
+    with pytest.raises(ValueError):
+        tp1.level_starts(bad)
+
+
+# --- on the card: each kernel against its plain version, bit for bit ---
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", tp5.PS)
+@pytest.mark.parametrize("probe", sorted(INTERLEAVE))
+def test_interleave_kernel_exact(cuda, probe, P):
+    port = INTERLEAVE[probe][1]
+    nodes, rays = _interleave_inputs(P)
+    args = [torch.as_tensor(x, device=cuda) for x in (nodes, *rays)]
+    tiles, sink = port.make(P, iters=64)(*args)
+    ref = tp5.interleave_reference(args[0], tp5.pack_rays(P, args[1:]), 64,
+                                   probe == "P6")
+    assert torch.equal(torch.stack(tiles).reshape(P, -1), ref[0])
+    assert torch.equal(sink, ref[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", tp2.PS)
+@pytest.mark.parametrize("variant", tp2.VARIANTS)
+def test_interleave2_kernel_exact(cuda, variant, P):
+    nodes, tris, rays = _interleave2_inputs(P)
+    args = [torch.as_tensor(x, device=cuda) for x in (nodes, tris, *rays)]
+    tiles, sink = tp2.make(P, variant, iters=64)(*args)
+    ref = tp2.interleave2_reference(args[0], args[1],
+                                    tp5.pack_rays(P, args[2:]), variant, 64)
+    assert torch.equal(torch.stack(tiles).reshape(P, -1), ref[0])
+    assert torch.equal(sink, ref[1])
+
+
+@pytest.mark.cuda
+def test_smem_walk_kernel_exact(cuda, port_tables):
+    acc = port_tables.to(cuda)
+    ot, od = (x.to(cuda) for x in _primary_rays())
+    pt, pi = tp1.smem_nearest_reference(ot, od, acc)
+    for block in tp1.BLOCKS:
+        for n_staged in tp1.staged_prefixes(acc) + [acc.n_wide]:
+            t, tri = tp1.smem_nearest(ot, od, acc, n_staged, block)
+            torch.cuda.synchronize()
+            assert torch.equal(t, pt) and torch.equal(tri, pi)

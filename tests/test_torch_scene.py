@@ -174,6 +174,11 @@ def test_import_leaves_jax_out():
         "assert N.calls['build_bvh_sah'] == int(N.available())\n"
         "maps = open('/proc/self/maps').read()\n"
         "assert 'libdpt_native.so' not in maps, 'the JAX runtime is loaded'\n"
+        "assert not [m for m in sys.modules if '.probes' in m], 'probes'\n"
+        "import dpt_tpu_torch.probes.r3_smem_proto\n"
+        "import dpt_tpu_torch.probes.probe_interleave\n"
+        "import dpt_tpu_torch.probes.probe_interleave_any\n"
+        "import dpt_tpu_torch.probes.probe_interleave2\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'dpt_tpu'))\n"
