@@ -2,7 +2,7 @@
 
     python chip_smoke.py
 
-Drives `dpt_tpu_torch` only (no JAX, no `dpt_tpu`), in twenty phases, each
+Drives `dpt_tpu_torch` only (no JAX, no `dpt_tpu`), in 21 phases, each
 printing one line or more:
 
   1. device   — a CUDA card of compute capability 9.0; prints
@@ -127,11 +127,24 @@ printing one line or more:
                 lane, with blocks per SM).  The probes' launch counts are
                 set to 0 before phase 3 and read before phase 20: the
                 render, optimize and walk phases may launch no probe.
+ 21. primitives — the primitive probes (the same library): P3
+                (gather.cu), P4 (crossbar.cu, B at K = 1, 4, 12), P7 and P8
+                (features.cu), each launched once through its public
+                function at the TPU scripts' inputs (64 steps for the
+                loops; the launch counts set to 0 before and read after)
+                and equal to its plain version bit for bit; the TPU
+                scripts' own checks of P7 and P8 (P8 at i = 0, 127, 128,
+                200, 511); then one timing line each at the scripts' steps
+                (wrapper, kernel, plain, the library call where one
+                computes the same function, the bound, and for the loops
+                ns a step beside the bound of the one SM that runs the
+                block).
 
 Then one JSON line with the kernels (each with its design; for K1 and K2
 the primary stream's numbers, the other streams' under "_incoherent" and
-"_bounce"; the four probes with the launches of phase 20's run and, as
-"launches_main_path", those of phases 3-19), and as the last line
+"_bounce"; the probes with the launches of phase 20's or 21's run and, as
+"launches_main_path", those of phases 3-19; each primitive probe with its
+CUDA function's `source_line`), and as the last line
 `{"ok": true, "device": {...}}`.  Any failed phase raises, and the script
 exits non-zero without that last line.  Without a CUDA card it exits
 non-zero at phase 1.
@@ -201,6 +214,37 @@ KERNELS = {
                        "scripts/attic/probe_interleave_any.py:34", 2),
     "interleave2": ("dpt_tpu_torch/csrc/probes/interleave2.cu",
                     "scripts/attic/probe_interleave2.py:55", 2),
+    # The primitive probes (phase 21): no slab.
+    **{name: (f"dpt_tpu_torch/csrc/probes/{src}.cu", f"scripts/{script}", 0)
+       for name, src, script in (
+           ("gather_axis1", "gather", "attic/probe_gather.py:66"),
+           ("gather_axis0", "gather", "attic/probe_gather.py:98"),
+           ("crossbar_sublane", "crossbar", "probe_crossbar.py:48"),
+           ("crossbar_lanes", "crossbar", "probe_crossbar.py:64"),
+           ("crossbar_fused", "crossbar", "probe_crossbar.py:80"),
+           ("crossbar_rows", "crossbar", "probe_crossbar.py:101"),
+           ("crossbar_math", "crossbar", "probe_crossbar.py:127"),
+           ("scalar_load", "features", "attic/probe_pallas.py:17"),
+           ("scalar_extract", "features", "attic/probe_pallas.py:40"),
+           ("smem_stack", "features", "attic/probe_pallas.py:63"),
+           ("int_vector_ops", "features", "attic/probe_pallas.py:104"),
+           ("dyn_lane_slice", "features", "attic/probe_pallas2.py:18"),
+           ("dyn_roll", "features", "attic/probe_pallas2.py:36"),
+           ("scalar_dyn_lane", "features", "attic/probe_pallas2.py:55"),
+           ("dyn_sublane_row", "features", "attic/probe_pallas2.py:73"))},
+}
+# The CUDA kernel function of each primitive probe (its line in the source
+# goes into the kernels line as source_line).
+PRIMITIVE_FUNCTIONS = {
+    "gather_axis1": "gather_axis1_kernel", "gather_axis0": "gather_axis0_kernel",
+    "crossbar_sublane": "sublane_kernel", "crossbar_lanes": "lanes_kernel",
+    "crossbar_fused": "fused_kernel", "crossbar_rows": "rows_kernel",
+    "crossbar_math": "math_kernel", "scalar_load": "scalar_load_kernel",
+    "scalar_extract": "scalar_extract_kernel",
+    "smem_stack": "smem_stack_kernel", "int_vector_ops": "int_vector_ops_kernel",
+    "dyn_lane_slice": "dyn_lane_slice_kernel", "dyn_roll": "dyn_roll_kernel",
+    "scalar_dyn_lane": "scalar_dyn_lane_kernel",
+    "dyn_sublane_row": "dyn_sublane_row_kernel",
 }
 # kernel -> its design on the card, for the kernels line.
 DESIGNS = {
@@ -230,8 +274,35 @@ DESIGNS = {
         "__syncthreads_or, the chains' stacks in shared memory (every thread "
         "writes the same word); a sink [P, 3] of final sp, top and mt8 ok "
         "count"),
+    **dict.fromkeys(("gather_axis1", "crossbar_sublane", "crossbar_fused"), (
+        "one block of 1024 threads, one per tile element; the tile (and C's "
+        "lane table) in shared memory, index and sum in registers")),
+    "gather_axis0": (
+        "one block of 1024 threads, 8 elements each; the [64, 128] tile "
+        "(32 KB) in shared memory"),
+    "crossbar_lanes": (
+        "one block of 1024 threads; the K tiles x + q in dynamic shared "
+        "memory (K x 4 KB), K loads a step, K a template argument"),
+    "crossbar_rows": (
+        "one block of 1024 threads; the 2 MB table in device memory and L2, "
+        "the row starts staged in shared memory 1,024 at a time, 8 steps' "
+        "loads in flight (unrolled by 8)"),
+    "crossbar_math": (
+        "one block of 1024 threads, v in a register, 141 dependent "
+        "operations a step (-fmad=false)"),
+    **dict.fromkeys(("scalar_load", "scalar_extract", "scalar_dyn_lane",
+                     "dyn_sublane_row"), (
+        "one block of 128 threads, one per output lane; the device-side index "
+        "and the table word each one broadcast load")),
+    **dict.fromkeys(("dyn_lane_slice", "dyn_roll", "int_vector_ops"), (
+        "one block of 1024 threads, one per output element")),
+    "smem_stack": (
+        "one block of 128 threads; thread 0 walks a volatile stack in shared "
+        "memory and broadcasts the sum through shared memory"),
 }
-# The probes' steps (P5, P6, P2) at phase 20's check; their mains take 512.
+# The probes' steps at the checks of phase 20 (P5, P6, P2; their mains take
+# 512) and phase 21 (the primitive probes' loops; their mains take the TPU
+# scripts' 100 to 2,000).
 PROBE_ITERS = 64
 # The K3 stream of real table size: the procedural sphere of 3,720
 # triangles (465 table rows).
@@ -319,10 +390,11 @@ def primary_rays(camera, cfg, sample_batch, seed, device):
     return o, d, md
 
 
-def median_ms(fn, inputs):
+def median_ms(fn, inputs, warm=True):
     """Median over `inputs` of one call each, timed with CUDA events after
-    one warm-up call."""
-    fn(*inputs[0])
+    one warm-up call (none with warm=False)."""
+    if warm:
+        fn(*inputs[0])
     torch.cuda.synchronize()
     times = []
     for args in inputs:
@@ -1674,10 +1746,11 @@ def phase_probes(device, main_path_launches):
     out1 = [{(b, s): p1.smem_nearest(o, d, accel, s, b)
              for b in p1.BLOCKS for s in prefixes} for o, d in bounce]
     torch.cuda.synchronize()
-    launches = dict(probes.launch_counts)
     want = {"interleave": len(p5.PS), "interleave_any": len(p5.PS),
             "interleave2": len(steps),
             "smem_walk": len(p1.BLOCKS) * len(prefixes) * len(bounce)}
+    launches = {k: v for k, v in probes.launch_counts.items()
+                if k in want or v}  # the walk probes', and any other's
     require(launches == want, f"[{tag}] probe launches {launches}, want "
             f"{want}")
 
@@ -1810,9 +1883,153 @@ def phase_probes(device, main_path_launches):
     return launches, entries
 
 
+def library_calls(a4, device):
+    """kernel -> one PyTorch call computing the same function on the same
+    device-resident inputs as phase 21's timed launch, where there is one
+    (timed beside the kernel, used nowhere in the port).  No single call
+    sums a gather over k (P3, P4 a-c), runs the multiply-add chain (P4 e),
+    a stack (P7-3) or makes the iota (P7-4), doubles a gathered row (P7-1:
+    two calls) or rolls by a device-side shift (P8-2, P8-4)."""
+    import torch.nn.functional as F
+
+    from dpt_tpu_torch.probes import probe_pallas as p7
+    from dpt_tpu_torch.probes import probe_pallas2 as p8
+
+    rows = a4["rows"].long()
+    blocks = a4["tab"].view(-1, 8 * 128)  # row block r is row r here
+    offsets = torch.zeros(1, dtype=torch.long, device=device)
+    t7, t8 = p7.table(device), p8.table(device)
+    i7 = torch.tensor([3], dtype=torch.int32).to(device)
+    i8 = torch.tensor([p8.IDX], dtype=torch.int32).to(device)
+    return {
+        "crossbar_rows": lambda: F.embedding_bag(rows, blocks, offsets,
+                                                 mode="sum"),
+        "scalar_extract": lambda: torch.index_select(t7[:, 0], 0, i7)
+        .expand(1, 128),
+        "dyn_lane_slice": lambda: torch.index_select(t8, 1, i8)
+        .expand(8, 128),
+        "scalar_dyn_lane": lambda: torch.index_select(t8[3], 0, i8)
+        .expand(1, 128),
+    }
+
+
+def source_line(name):
+    """`file:line` of a primitive probe's CUDA kernel function."""
+    path = KERNELS[name][0]
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           path)) as f:
+        for k, line in enumerate(f, 1):
+            if f"{PRIMITIVE_FUNCTIONS[name]}(" in line:
+                return f"{path}:{k}"
+    raise SmokeFailure(f"{PRIMITIVE_FUNCTIONS[name]} not in {path}")
+
+
+def phase_primitives(device):
+    """The primitive probes P3, P4, P7, P8 at the TPU scripts' steps: every
+    kernel launched once through its public wrapper (the launch counts set
+    to 0 before and read after), each equal to its plain version bit for
+    bit; the TPU probes' own checks of P7 and P8 (i in 0, 127, 128, 200,
+    511); then each timed: the wrapper, the kernel (events behind a sleep),
+    the plain version (the call after the checked one), the library call
+    where there is one (device time, as the kernel's), the bounds of the
+    card and of the one SM that runs the block."""
+    from dpt_tpu_torch import probes
+    from dpt_tpu_torch.kernels import build
+    from dpt_tpu_torch.probes import probe_crossbar as p4
+    from dpt_tpu_torch.probes import probe_gather as p3
+    from dpt_tpu_torch.probes import probe_pallas as p7
+    from dpt_tpu_torch.probes import probe_pallas2 as p8
+
+    tag = "21 primitives"
+    t_phase = time.perf_counter()
+    build.load_probe_library()  # phase 20 built it
+    rng = np.random.default_rng(0)
+    g3 = [torch.as_tensor(x, device=device) for x in p3.inputs(rng)]
+    a4 = {k: torch.as_tensor(v, device=device)
+          for k, v in p4.inputs(rng).items()}
+    full = {**p3.launches(*g3), **p4.launches(a4), **p7.launches(device),
+            **p8.launches(device)}
+
+    # The probes' path: every kernel once, through its public wrapper.
+    probes.reset_launch_counts()
+    outs = {name: ln.call() for name, ln in full.items()}
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in probes.launch_counts.items()
+                if k in PRIMITIVE_FUNCTIONS}
+    want = {k: 0 for k in PRIMITIVE_FUNCTIONS}
+    for name in full:
+        want[probes.counter(name)] += 1
+    require(launches == want and sum(probes.launch_counts.values())
+            == sum(want.values()), f"[{tag}] launches {probes.launch_counts}"
+            f", want {want}")
+    errs, plain_ms = {}, {}
+    for name, ln in full.items():
+        got, plain = outs[name], ln.plain()
+        require(got.is_cuda and got.dtype == plain.dtype
+                and torch.equal(got, plain),
+                f"[{tag}] {name} differs from its plain version")
+        key = probes.counter(name)
+        err = max_abs_err([(got.double(), plain.double())])
+        errs[key] = max(errs.get(key, 0.0), err)
+        # the checked call warmed it up: time the next one
+        plain_ms[name] = median_ms(ln.plain, [()], warm=False)
+    for i in (0, 127, 128, 200, 511):
+        lines = p8.probe_lines(device, i)
+        require(all(ok for _, ok in lines), f"[{tag}] P8 at {i}: {lines}")
+    lines = p7.probe_lines(device)
+    require(all(ok for _, ok, _ in lines), f"[{tag}] P7: {lines}")
+    print(f"[{tag}] exact: {len(full)} launches at the TPU scripts' steps = "
+          "their plain versions; the TPU probes' P7 and P8 checks hold; "
+          f"launches {launches}; max_abs_err {errs}", flush=True)
+
+    # Timing.
+    library = library_calls(a4, device)
+    for name, fn in library.items():  # the same function (sums reordered)
+        got, ref = fn().reshape(-1), full[name].plain().reshape(-1)
+        # atol 1e-3: D's 2,000 float32 terms summed in another order
+        require(torch.allclose(got, ref, rtol=1e-5, atol=1e-3),
+                f"[{tag}] the library call of {name} computes another "
+                "function")
+    timed = probes.time_launches(full, n=10)
+    entries = {}
+    for name, ln in full.items():
+        m = timed[name]
+        key = probes.counter(name)
+        e = {"ms": median_ms(ln.call, [()] * TIMED_CALLS),
+             "kernel_ms": m["kernel_ms"],
+             "plain_ms": plain_ms[name],
+             "bound_ms": m["bound_ms"],
+             "bound_by": m["bound_by"],
+             "max_abs_err": errs[key], "steps": ln.steps,
+             "config": ln.label, "source_line": source_line(key),
+             "library_ms": (statistics.median(probes.launch_ms(
+                 library[key], [()], n=10)) if key in library else None)}
+        if ln.steps > 1:
+            e["ns_per_step"] = m["ns_per_step"]
+            e["bound_sm_ms"] = m["sm_bound_ns_per_step"] * ln.steps * 1e-6
+            e["bound_sm_ns_per_step"] = m["sm_bound_ns_per_step"]
+        print(f"[{tag}] {name} ({ln.label}): {e['ms']:.4f} ms (kernel "
+              f"{e['kernel_ms']:.4f}, plain {e['plain_ms']:.3f}, library "
+              f"{e['library_ms']}, bound {e['bound_ms']:.6f} by "
+              f"{e['bound_by']}"
+              + (f"; {ln.steps} steps, {e['ns_per_step']:.1f} ns a step, "
+                 f"its SM's bound {e['bound_sm_ns_per_step']:.1f}"
+                 if ln.steps > 1 else "") + ")", flush=True)
+        if key == "crossbar_lanes":  # one entry, K = 12's numbers
+            first = entries.setdefault(key, {})
+            first.update(e)
+            first.update({f"kernel_ms_K{k.split('_K')[1]}":
+                          timed[k]["kernel_ms"] for k in full
+                          if k.startswith("crossbar_lanes_K")})
+        else:
+            entries[key] = e
+    print(f"[{tag}] took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, entries
+
+
 def probe_entries(launches, main_path_launches, entries):
-    """The kernels-line entries of the four probes: launches from the
-    probes' path run (phase 20), launches_main_path from phases 3-19, the
+    """The kernels-line entries of the probes: launches from the probes'
+    path run (phase 20 or 21), launches_main_path from phases 3-19, the
     rest from the timed configuration."""
     out = []
     for name, m in entries.items():
@@ -1889,9 +2106,11 @@ def main():
     main_path_probe_launches = dict(probes.launch_counts)
     probe_launches, probe_stats = phase_probes(device,
                                                main_path_probe_launches)
+    primitive_launches, primitive_stats = phase_primitives(device)
 
     # No PyTorch call computes a BVH walk, the brute-force nearest hit or a
-    # probe's chains, so library_ms is null.
+    # probe's chains, so library_ms is null; phase 21 times one where a
+    # primitive probe has one (library_calls).
     per_rank = {f"launches_sharded_rank{r}": c
                 for r, c in enumerate(sharded_counts)}
     per_rank.update({f"launches_sharded_optimize_rank{r}": c
@@ -1908,7 +2127,9 @@ def main():
                                 {s: {"nearest": v} for s, v in k3.items()},
                                 box_counts)
                + probe_entries(probe_launches, main_path_probe_launches,
-                               probe_stats))
+                               probe_stats)
+               + probe_entries(primitive_launches, main_path_probe_launches,
+                               primitive_stats))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,8 +1,10 @@
-// Device helpers shared by the walk probes (the H100 forms of the TPU
-// probes under scripts/): the interleaved pointer-chase chains P5 / P6
+// Device helpers shared by the probes (the H100 forms of the TPU probes
+// under scripts/): the interleaved pointer-chase chains P5 / P6
 // (interleave.cu) and the walk-step variants P2 (interleave2.cu), whose
 // step is a dependent record load, a slab pair, and the next index; P1
-// (smem_walk.cu) takes K1's helpers from traverse_common.cuh.
+// (smem_walk.cu) takes K1's helpers from traverse_common.cuh; the primitive
+// probes P3, P4, P7 and P8 (gather.cu, crossbar.cu, features.cu) take the
+// tile shape and JAX's dynamic-slice start.
 //
 // The chains' tables are the TPU probes' `nodes` [1024, 128] f32, read as
 // 8192 records of 16 floats: the TPU probe loads row rid // 8 and rolls
@@ -25,6 +27,16 @@ constexpr int kRecords = 8192;
 // trunc(field) + rid may be negative.
 __device__ __forceinline__ int floor_mod(int a, int m) {
   return ((a % m) + m) % m;
+}
+
+// The start of a dynamic slice of `size` along an axis of `dim`, as JAX
+// indexes (`ref[i]`, `pl.ds(i, size)`): a negative i counts from the end,
+// then the start is clamped into [0, dim - size] (lax.dynamic_slice).  The
+// primitive probes read their indices on the device, so an index out of
+// range is clamped here rather than refused by the host.
+__device__ __forceinline__ int dyn_start(int i, int dim, int size) {
+  const int s = i < 0 ? i + dim : i;
+  return min(max(s, 0), dim - size);
 }
 
 // The probes' inverse direction 1 / where(|d| < 1e-20, 1e-20, d): unlike

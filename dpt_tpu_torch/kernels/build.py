@@ -10,7 +10,7 @@ no `nvcc`, and a build happens only when a CUDA tensor reaches a kernel
 wrapper.  `launch_walk` calls a BVH walk kernel (K1 in either design,
 K2) through its C interface, `launch_intersect` the brute-force search (K3).
 
-The walk probes (csrc/probes/*.cu, the H100 forms of the TPU probes under
+The probes (csrc/probes/*.cu, the H100 forms of the TPU probes under
 scripts/) build the same way into a second library,
 `libdpt_probes_<hash>.so` (`load_probe_library`), at first use by a probe
 module (dpt_tpu_torch/probes/); the render's library and its hash do not
@@ -172,7 +172,7 @@ def load_library() -> ctypes.CDLL:
 
 
 def load_probe_library() -> ctypes.CDLL:
-    """The walk probes' library (csrc/probes/*.cu), with argtypes declared
+    """The probes' library (csrc/probes/*.cu), with argtypes declared
     (built on first call)."""
     global _probe_lib
     if _probe_lib is not None:
@@ -180,11 +180,26 @@ def load_probe_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build("libdpt_probes", _probe_sources())))
     p, i = ctypes.c_void_p, ctypes.c_int
     ip = ctypes.POINTER(i)
+    # The primitive probes (gather.cu, crossbar.cu, features.cu): the
+    # tiles, then out and the stream.
+    tile_iters = [p, p, i, p, p]  # x, index tile, iters | idx, table, dim
     for name, args in (
             ("dpt_quad_traverse_smem", [p, p, p, p, i, i, i, p, p, p]),
             ("dpt_quad_traverse_smem_attrs", [i, i, ip, ip, ip]),
             ("dpt_probe_interleave", [p, p, i, i, i, p, p, p]),
-            ("dpt_probe_interleave2", [p, p, p, i, i, i, p, p, p])):
+            ("dpt_probe_interleave2", [p, p, p, i, i, i, p, p, p]),
+            ("dpt_probe_gather_axis1", tile_iters),
+            ("dpt_probe_gather_axis0", tile_iters),
+            ("dpt_probe_crossbar_sublane", tile_iters),
+            ("dpt_probe_crossbar_lanes", [p, p, i, i, p, p]),
+            ("dpt_probe_crossbar_fused", [p, p, p, i, p, p]),
+            ("dpt_probe_crossbar_rows", [p, i, p, i, p, p]),
+            ("dpt_probe_crossbar_math", [p, i, p, p]),
+            *((f"dpt_probe_{k}", tile_iters) for k in (
+                "scalar_load", "scalar_extract", "dyn_lane_slice",
+                "dyn_roll", "scalar_dyn_lane", "dyn_sublane_row")),
+            ("dpt_probe_smem_stack", [p, p]),
+            ("dpt_probe_int_vector_ops", [p, p])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i

@@ -1,0 +1,264 @@
+"""P4: the per-lane lookup primitives, each a loop over one [8, 128] tile.
+
+Counterpart of `scripts/probe_crossbar.py` (which runs everything when
+imported; here the work is in `main`), whose five Pallas kernels priced
+Mosaic's lookups, run by `run_kernel` :30 (pallas_call :33) or `go_d` :109
+(pallas_call :110) for ITERS = 2000 steps, each a CUDA kernel of
+csrc/probes/crossbar.cu:
+
+  - `sublane_gather(x, sub, iters)` (`kern_a` :48): acc[r, c] += x[(sub[r,
+    c] + k) % 8, c];
+  - `lane_gathers(x, idx, K, iters)` (`kern_b` :64, K = 1, 4, 12): for k <
+    iters // K and q = 0..K-1 in order, acc[r, c] += (x + q)[r, (idx[r, c]
+    + k) % 128];
+  - `fused_lookup(x, lane, srow, iters)` (`kern_c` :80): s = (srow[r, c] +
+    k) % 8, acc[r, c] += x[s, (lane[s, c] + k) % 128] (a lane gather, then
+    a row gather of its result);
+  - `row_blocks(tab, rows)` (`kern_d` :101): acc[r, c] += tab[rows[k] * 8 +
+    r, c] for k < len(rows), tab f32 [4096, 128] (2 MB), rows int32 in [0,
+    511) (a row block out of range starts where JAX's `pl.ds` would);
+  - `vector_ops(x, iters)` (`kern_e` :127): v = x + acc, then 70 times v =
+    v * 1.0001 + 0.5, acc = v.
+
+x is f32 [8, 128], sub / idx / lane / srow int32 [8, 128]; % is floor mod.
+CUDA tensors launch the kernel; CPU tensors run the `*_reference`
+functions, the same steps as torch ops (bit for bit on the card).
+
+    python -m dpt_tpu_torch.probes.probe_crossbar
+
+prints the TPU probe's lines on the card (ns a gather, step or load of each
+kernel beside the bound of the one SM that runs its block), the card's
+name and power limit and one JSON line.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from dpt_tpu_torch import probes
+
+ITERS = 2000
+LANES = 128
+ROWS = 8
+TABLE_ROWS = 4096
+ROW_BLOCKS = 511  # rows[k] is drawn from [0, 511)
+KS = (1, 4, 12)
+MATH_OPS = 70
+MUL, ADD = 1.0001, 0.5
+TIMED_LAUNCHES = 20
+# Each element's operations a step, as the TPU probe spells them: an index
+# add and floor mod (two int32 operations) for each lookup index, a
+# shared-memory word for each lookup, a float add for each sum.  D's row
+# block start is the same for the whole tile (its 4 KB come from L2, which
+# no pipe here counts); E is 70 multiply adds and the add of x.
+STEP_OPS = {
+    "sublane": {"i32": 2, "lds": 1, "f32": 1},
+    "fused": {"i32": 4, "lds": 2, "f32": 1},
+    "rows": {"f32": 1},
+    "math": {"f32": 2 * MATH_OPS + 1},
+}
+
+
+def lanes_step_ops(K):
+    """B's step needs one lookup, not K: (x + q)[j] is x[j] + q rounded,
+    bit for bit, so the function is one word, its index and 2K float adds
+    (the kernel keeps the TPU probe's K lookups, and is held to this)."""
+    return {"i32": 2, "lds": 1, "f32": 2 * K}
+
+
+def sublane_gather_reference(x, sub, iters):
+    acc = torch.zeros_like(x)
+    for k in range(iters):
+        acc = acc + torch.gather(x, 0, torch.remainder(sub + k, ROWS).long())
+    return acc
+
+
+def lane_gathers_reference(x, idx, K, iters):
+    xq = [x + float(q) for q in range(K)]
+    acc = torch.zeros_like(x)
+    for k in range(iters):
+        j = torch.remainder(idx + k, LANES).long()
+        for q in range(K):
+            acc = acc + torch.gather(xq[q], 1, j)
+    return acc
+
+
+def fused_lookup_reference(x, lane, srow, iters):
+    acc = torch.zeros_like(x)
+    for k in range(iters):
+        g1 = torch.gather(x, 1, torch.remainder(lane + k, LANES).long())
+        acc = acc + torch.gather(g1, 0, torch.remainder(srow + k, ROWS).long())
+    return acc
+
+
+def row_starts(rows, n_rows):
+    """Each step's first table row: JAX's start of pl.ds(rows[k] * 8, 8)
+    (rows * 8 wraps in int32 as in JAX), on the rows' device."""
+    return probes.dyn_start(rows * ROWS, n_rows, ROWS)
+
+
+def row_blocks_reference(tab, rows):
+    starts = row_starts(rows, tab.shape[0]).long()
+    offs = torch.arange(ROWS, device=tab.device)
+    blocks = tab.index_select(0, (starts[:, None] + offs).reshape(-1))
+    blocks = blocks.reshape(-1, ROWS, tab.shape[1])
+    acc = torch.zeros((ROWS, tab.shape[1]), dtype=tab.dtype,
+                      device=tab.device)
+    for k in range(rows.shape[0]):
+        acc = acc + blocks[k]
+    return acc
+
+
+def vector_ops_reference(x, iters):
+    acc = torch.zeros_like(x)
+    for _ in range(iters):
+        v = x + acc
+        for _ in range(MATH_OPS):
+            v = v * MUL + ADD
+        acc = v
+    return acc
+
+
+def _tiles(iters, x, *index_tiles):
+    probes.check_tensor("x", x, torch.float32, (ROWS, LANES))
+    for t in index_tiles:
+        probes.check_tensor("index tile", t, torch.int32, (ROWS, LANES))
+    probes.check_steps(iters)
+    return probes.on_device(x, *index_tiles)
+
+
+def _launch(name, x, *args):
+    return probes.launch_kernel(
+        name, torch.empty_like(x),
+        *(a.contiguous() if isinstance(a, torch.Tensor) else a
+          for a in (x, *args)))
+
+
+def sublane_gather(x, sub, iters=ITERS):
+    """[8, 128] f32: the sum over k < iters of x[(sub + k) % 8, c]."""
+    if _tiles(iters, x, sub) == "cpu":
+        return sublane_gather_reference(x, sub, iters)
+    return _launch("crossbar_sublane", x, sub, iters)
+
+
+def lane_gathers(x, idx, K, iters=ITERS):
+    """[8, 128] f32: iters // K steps of K lane gathers from x + q."""
+    if K not in KS:
+        raise ValueError(f"the kernel is built for K in {KS}, got {K}")
+    if _tiles(iters, x, idx) == "cpu":
+        return lane_gathers_reference(x, idx, K, iters // K)
+    return _launch("crossbar_lanes", x, idx, K, iters // K)
+
+
+def fused_lookup(x, lane, srow, iters=ITERS):
+    """[8, 128] f32: the sum over k of x[s, (lane[s, c] + k) % 128], s =
+    (srow + k) % 8."""
+    if _tiles(iters, x, lane, srow) == "cpu":
+        return fused_lookup_reference(x, lane, srow, iters)
+    return _launch("crossbar_fused", x, lane, srow, iters)
+
+
+def row_blocks(tab, rows):
+    """[8, 128] f32: the sum over k of the row block tab[rows[k] * 8 :
+    rows[k] * 8 + 8]."""
+    probes.check_tensor("tab", tab, torch.float32, (None, LANES))
+    probes.check_tensor("rows", rows, torch.int32, (None,))
+    if not ROWS <= tab.shape[0] < 2**31 // LANES:
+        raise ValueError(f"tab needs {ROWS} to {2**31 // LANES - 1} rows (the "
+                         f"kernel's int32 offsets), got {tab.shape[0]}")
+    probes.check_steps(rows.shape[0])
+    if probes.on_device(tab, rows) == "cpu":
+        return row_blocks_reference(tab, rows)
+    return probes.launch_kernel(
+        "crossbar_rows", torch.empty((ROWS, LANES), dtype=torch.float32,
+                                     device=tab.device),
+        tab.contiguous(), tab.shape[0], rows.contiguous(), rows.shape[0])
+
+
+def vector_ops(x, iters=ITERS):
+    """[8, 128] f32: iters steps of v = x + acc and 70 multiply-adds."""
+    if _tiles(iters, x) == "cpu":
+        return vector_ops_reference(x, iters)
+    return _launch("crossbar_math", x, iters)
+
+
+def inputs(rng, iters=ITERS):
+    """The TPU probe's inputs, drawn as it draws them (normal floats,
+    uniform indices) from a numpy generator: x [8, 128], idx [8, 128] in
+    [0, 128), sub [8, 128] in [0, 8), tab [4096, 128], rows [iters] in [0,
+    511)."""
+    return {
+        "x": rng.normal(size=(ROWS, LANES)).astype(np.float32),
+        "idx": rng.integers(0, LANES, (ROWS, LANES), dtype=np.int32),
+        "sub": rng.integers(0, ROWS, (ROWS, LANES), dtype=np.int32),
+        "tab": rng.normal(size=(TABLE_ROWS, LANES)).astype(np.float32),
+        "rows": rng.integers(0, ROW_BLOCKS, (iters,), dtype=np.int32),
+    }
+
+
+def launches(a, iters=ITERS):
+    """kernel -> `probes.Launch` at the inputs `a` (tensors, as `inputs`
+    draws them) and ITERS = `iters`, each through its public wrapper as the
+    TPU probe runs it (C takes idx as `lane` and sub as `srow`, as the probe
+    does; D the first `iters` rows)."""
+    tile = ROWS * LANES
+    x, idx, sub, tab = a["x"], a["idx"], a["sub"], a["tab"]
+    rows = a["rows"][:iters]
+    n_blocks = int(torch.unique(row_starts(rows, tab.shape[0])).numel())
+
+    def ops(step_ops, steps):
+        return {k: n * tile * steps for k, n in step_ops.items()}
+
+    return {
+        "crossbar_sublane": probes.Launch(
+            "a) axis-0 [8,128] gather",
+            lambda: sublane_gather(x, sub, iters),
+            lambda: sublane_gather_reference(x, sub, iters),
+            iters, ops(STEP_OPS["sublane"], iters), 12 * tile),
+        **{f"crossbar_lanes_K{K}": probes.Launch(
+            f"b) {K:2d} axis-1 gathers/iter",
+            lambda K=K: lane_gathers(x, idx, K, iters),
+            lambda K=K: lane_gathers_reference(x, idx, K, iters // K),
+            iters // K, ops(lanes_step_ops(K), iters // K), 12 * tile)
+           for K in KS},
+        "crossbar_fused": probes.Launch(
+            "c) fused 1024-lookup",
+            lambda: fused_lookup(x, idx, sub, iters),
+            lambda: fused_lookup_reference(x, idx, sub, iters),
+            iters, ops(STEP_OPS["fused"], iters), 16 * tile),
+        # the distinct row blocks read, the rows, the output
+        "crossbar_rows": probes.Launch(
+            "d) dyn [8,128] row-block load",
+            lambda: row_blocks(tab, rows),
+            lambda: row_blocks_reference(tab, rows),
+            iters, ops(STEP_OPS["rows"], iters),
+            4 * tile * n_blocks + 4 * iters + 4 * tile),
+        "crossbar_math": probes.Launch(
+            "e) 70 fused vector ops",
+            lambda: vector_ops(x, iters),
+            lambda: vector_ops_reference(x, iters),
+            iters, ops(STEP_OPS["math"], iters), 8 * tile),
+    }
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    card = probes.card_line()
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+    a = {k: torch.as_tensor(v, device=dev)
+         for k, v in inputs(np.random.default_rng(0)).items()}
+    lns = launches(a)
+    timed = probes.time_launches(lns, TIMED_LAUNCHES)
+    for K in KS:  # the TPU probe's ns a gather
+        m = timed[f"crossbar_lanes_K{K}"]
+        m["ns_per_gather"] = m["ns_per_step"] / K
+    probes.print_launches("probe_crossbar", lns, timed, card, iters=ITERS)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,469 @@
+"""dpt_tpu_torch primitive probes ≡ the JAX probe scripts they port.
+
+  - P3 (`probe_gather`): the lane and row gathers against `kern` and
+    `kern0` of scripts/attic/probe_gather.py at their own 1000 and 100
+    steps; `xla_gather` and `chase` against the script's jnp indexing.
+  - P4 (`probe_crossbar`): the five kernels of scripts/probe_crossbar.py
+    (B at K = 1, 4, 12) with ITERS = 16; E allclose at rtol 1e-6 (XLA
+    contracts its multiply-add chain into fused multiply-adds, the port
+    rounds each operation), the others bit-equal.
+  - P7 (`probe_pallas`) and P8 (`probe_pallas2`): the eight Mosaic feature
+    checks of scripts/attic/probe_pallas.py and probe_pallas2.py,
+    bit-equal, at indices in range and out of it (JAX takes a negative
+    index from the end and clamps the start, and so does the port).
+
+Each kernel is compared on the script's own inputs (its jax.random arrays,
+or its TABLE at i in {0, 127, 128, 200, 511}) and on seeded numpy ones.
+The JAX kernels run on the CPU in interpret mode: a pallas_call that
+records the kernel and its specs stands in for Pallas's while each script
+builds its call, and the recorded kernel is replayed under jax.jit with
+interpret=True on the test's arrays.  scripts/probe_crossbar.py runs
+everything when imported, so its kernels and `run_kernel` / `go_d` are
+taken from its syntax tree and run with ITERS = 16.  Tests marked `cuda`
+compare each CUDA kernel with its plain version on the card, bit for bit;
+they skip without one.
+"""
+
+import ast
+import functools
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from dpt_tpu_torch import probes
+from dpt_tpu_torch.probes import probe_crossbar as tp4
+from dpt_tpu_torch.probes import probe_gather as tp3
+from dpt_tpu_torch.probes import probe_pallas as tp7
+from dpt_tpu_torch.probes import probe_pallas2 as tp8
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+ITERS = 16  # P4's steps here (its script's ITERS is 2000)
+P8_INDICES = [0, 127, 128, 200, 511, -1, -600, 600, 10**6]
+P7_INDICES = [0, 3, 5, 7, -1, -9, 8, 10**6]
+
+
+class _Recorded(Exception):
+    """Raised by the recording pallas_call once it holds the kernel."""
+
+
+def _script(rel):
+    spec = importlib.util.spec_from_file_location(
+        "jax_" + pathlib.Path(rel).stem, ROOT / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _crossbar_defs(ns):
+    """scripts/probe_crossbar.py's kernels, `run_kernel` and `go_d`, taken
+    from its syntax tree and defined in `ns` (the script's module body runs
+    every probe at ITERS = 2000)."""
+    path = ROOT / "scripts/probe_crossbar.py"
+    wanted = {"run_kernel", "kern_a", "kern_b", "kern_c", "kern_d",
+              "kern_e", "go_d"}
+    defs = [n for n in ast.walk(ast.parse(path.read_text()))
+            if isinstance(n, ast.FunctionDef) and n.name in wanted]
+    assert sorted(d.name for d in defs) == sorted(wanted)
+    exec(compile(ast.Module(body=defs, type_ignores=[]), str(path), "exec"),
+         ns)
+    return ns
+
+
+@pytest.fixture(scope="module")
+def jax_kernels():
+    """name -> f(*numpy arrays) -> numpy array: each JAX probe kernel,
+    recorded from its script and replayed in interpret mode."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    real = pl.pallas_call
+    recorded = []
+
+    def record(kernel, **specs):
+        recorded.append((kernel, specs))
+        raise _Recorded
+
+    def replay(kernel, specs):
+        call = jax.jit(lambda *a: real(kernel, interpret=True, **specs)(*a))
+        return lambda *arrays: np.asarray(call(*arrays))
+
+    def take(fn, *args):
+        n = len(recorded)
+        with pytest.raises(_Recorded):
+            fn(*args)
+        assert len(recorded) == n + 1
+        return replay(*recorded[-1])
+
+    out = {}
+    z = functools.partial(jnp.zeros, dtype=jnp.float32)
+    zi = functools.partial(jnp.zeros, dtype=jnp.int32)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pl, "pallas_call", record)
+        p7 = _script("scripts/attic/probe_pallas.py")
+        p8 = _script("scripts/attic/probe_pallas2.py")
+        for mod in (p7, p8):
+            for name in dir(mod):
+                if name.startswith("probe_"):
+                    out[name] = take(getattr(mod, name))
+        n = len(recorded)
+        # The P3 script draws its inputs before each call; the recording
+        # needs none of them.  Each of its two timings catches the failure
+        # and goes on.
+        mp.setattr(jax.random, "normal",
+                   lambda key, shape, dtype: jnp.zeros(shape, dtype))
+        mp.setattr(jax.random, "randint",
+                   lambda key, shape, lo, hi, dtype: jnp.zeros(shape, dtype))
+        _script("scripts/attic/probe_gather.py").pallas_gather_probe()
+        assert len(recorded) == n + 2
+        out["kern"], out["kern0"] = (replay(*r) for r in recorded[n:])
+        ns = _crossbar_defs({"jax": jax, "jnp": jnp, "pl": pl,
+                             "pltpu": pltpu, "ITERS": ITERS, "K": 1})
+        tile, itile = z((8, 128)), zi((8, 128))
+        run = ns["run_kernel"]
+        out["kern_a"] = take(run(ns["kern_a"], None, 2), tile, itile)
+        for K in tp4.KS:
+            out[f"kern_b{K}"] = take(
+                run(functools.partial(ns["kern_b"], K=K), None, 2), tile,
+                itile)
+        out["kern_c"] = take(run(ns["kern_c"], None, 3), tile, itile, itile)
+        out["kern_d"] = take(ns["go_d"], z((4096, 128)), zi((ITERS,)))
+        out["kern_e"] = take(run(ns["kern_e"], None, 1), tile)
+    return out
+
+
+@pytest.fixture(scope="module")
+def script_inputs():
+    """The arrays the P3 and P4 scripts draw with jax.random, as numpy."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+
+    @jax.jit  # one compile for all of them
+    def draw():
+        key = jax.random.PRNGKey(0)
+        k1, k2, k3 = (jax.random.PRNGKey(s) for s in (1, 2, 3))
+        return {
+            "x": jax.random.normal(key, (8, 128), jnp.float32),
+            "idx": jax.random.randint(k1, (8, 128), 0, 128, jnp.int32),
+            "sub": jax.random.randint(k2, (8, 128), 0, 8, jnp.int32),
+            "x0": jax.random.normal(key, (64, 128), jnp.float32),
+            "idx0": jax.random.randint(k1, (64, 128), 0, 64, jnp.int32),
+            "tab": jax.random.normal(key, (4096, 128), jnp.float32),
+            "rows": jax.random.randint(k3, (2000,), 0, 511,
+                                       jnp.int32)[:ITERS],
+        }
+
+    return {k: np.array(v) for k, v in draw().items()}
+
+
+def _seeded_inputs(seed):
+    """Seeded inputs of the same shapes, the indices beyond the scripts'
+    ranges (negative and large: floor mod and JAX's clamped starts)."""
+    rng = np.random.default_rng(seed)
+    return {
+        "x": rng.normal(size=(8, 128)).astype(np.float32),
+        "idx": rng.integers(-1000, 1000, (8, 128), dtype=np.int32),
+        "sub": rng.integers(-50, 50, (8, 128), dtype=np.int32),
+        "x0": rng.normal(size=(64, 128)).astype(np.float32),
+        "idx0": rng.integers(-500, 500, (64, 128), dtype=np.int32),
+        "tab": rng.normal(size=(4096, 128)).astype(np.float32),
+        "rows": np.concatenate([
+            rng.integers(0, 511, ITERS - 4, dtype=np.int32),
+            np.array([-1, -600, 600, 2**28], dtype=np.int32)]),
+    }
+
+
+@pytest.fixture(params=["script", "seeded"])
+def inputs(request, script_inputs):
+    if request.param == "script":
+        return script_inputs
+    return _seeded_inputs(7)
+
+
+def _t(a):
+    return torch.as_tensor(a)
+
+
+# --- P3 ---
+
+
+@pytest.mark.parametrize("axis", [1, 0])
+def test_gather_matches_jax(jax_kernels, inputs, axis):
+    if axis == 1:
+        want = jax_kernels["kern"](inputs["x"], inputs["idx"])
+        got = tp3.axis1_gather(_t(inputs["x"]), _t(inputs["idx"]))
+    else:
+        want = jax_kernels["kern0"](inputs["x0"], inputs["idx0"])
+        got = tp3.axis0_gather(_t(inputs["x0"]), _t(inputs["idx0"]))
+    assert np.abs(want).max() > 0
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_xla_gather_matches_take():
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(3)
+    table = rng.normal(size=(1000, 16)).astype(np.float32)
+    idx = rng.integers(0, 1000, 4096, dtype=np.int32)
+    want = np.asarray(jnp.sum(jnp.take(jnp.asarray(table), jnp.asarray(idx),
+                                       axis=0), axis=-1))
+    np.testing.assert_allclose(tp3.xla_gather(_t(table), _t(idx)).numpy(),
+                               want, rtol=1e-6, atol=1e-6)
+
+
+def test_chase_matches_jax():
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(4)
+    n = 512
+    table = rng.integers(0, n, (n, 8), dtype=np.int32)
+    idx = rng.integers(0, n, 2048, dtype=np.int32)
+
+    def body(i, ix):  # the script's chase body
+        return (jnp.asarray(table)[ix][:, 0] + i) % n
+
+    want = np.asarray(jax.lax.fori_loop(0, tp3.CHASE_STEPS, body,
+                                        jnp.asarray(idx)))
+    got = tp3.chase(_t(table), _t(idx))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# --- P4 ---
+
+CROSSBAR = {
+    "a": ("kern_a", ("x", "sub"),
+          lambda a: tp4.sublane_gather(a["x"], a["sub"], ITERS)),
+    **{f"b{K}": (f"kern_b{K}", ("x", "idx"),
+                 lambda a, K=K: tp4.lane_gathers(a["x"], a["idx"], K, ITERS))
+       for K in tp4.KS},
+    "c": ("kern_c", ("x", "idx", "sub"),
+          lambda a: tp4.fused_lookup(a["x"], a["idx"], a["sub"], ITERS)),
+    "d": ("kern_d", ("tab", "rows"),
+          lambda a: tp4.row_blocks(a["tab"], a["rows"])),
+    "e": ("kern_e", ("x",), lambda a: tp4.vector_ops(a["x"], ITERS)),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(CROSSBAR))
+def test_crossbar_matches_jax(jax_kernels, inputs, kernel):
+    name, args, port = CROSSBAR[kernel]
+    want = jax_kernels[name](*(inputs[k] for k in args))
+    got = port({k: _t(v) for k, v in inputs.items()}).numpy()
+    assert np.abs(want).max() > 0
+    if kernel == "e":
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+def test_vector_ops_rounds_each_operation():
+    """E's plain version is the float32 chain rounded at every multiply
+    and add (the kernel's, built with -fmad=false), as numpy spells it."""
+    x = _seeded_inputs(9)["x"]
+    acc = np.zeros_like(x)
+    for _ in range(3):
+        v = x + acc
+        for _ in range(tp4.MATH_OPS):
+            v = v * np.float32(tp4.MUL) + np.float32(tp4.ADD)
+        acc = v
+    np.testing.assert_array_equal(tp4.vector_ops(_t(x), 3).numpy(), acc)
+
+
+# --- P7 and P8 ---
+
+
+@pytest.mark.parametrize("i", P7_INDICES)
+@pytest.mark.parametrize("probe", ["scalar_load_from_vmem",
+                                   "scalar_extract"])
+def test_p7_row_loads_match_jax(jax_kernels, probe, i):
+    rng = np.random.default_rng(11)
+    idx = np.array([i], dtype=np.int32)
+    for table in (np.arange(8 * 128, dtype=np.float32).reshape(8, 128),
+                  rng.normal(size=(8, 128)).astype(np.float32)):
+        want = jax_kernels[f"probe_{probe}"](idx, table)
+        got = getattr(tp7, probe)(_t(idx), _t(table))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("probe", ["smem_stack_while", "int_vector_ops"])
+def test_p7_no_input_kernels_match_jax(jax_kernels, probe):
+    want = jax_kernels[f"probe_{probe}"]()
+    got = getattr(tp7, probe)("cpu")
+    assert str(got.dtype).split('.')[-1] == str(want.dtype)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if probe == "smem_stack_while":
+        assert (want == 11.0).all()
+
+
+@pytest.mark.parametrize("i", P8_INDICES)
+@pytest.mark.parametrize("probe", ["dyn_lane_slice", "dyn_roll",
+                                   "scalar_dyn_lane", "dyn_sublane_row"])
+def test_p8_matches_jax(jax_kernels, probe, i):
+    rng = np.random.default_rng(13)
+    idx = np.array([i], dtype=np.int32)
+    for t in (np.arange(8 * tp8.N, dtype=np.float32).reshape(8, tp8.N),
+              rng.normal(size=(8, tp8.N)).astype(np.float32)):
+        if probe == "dyn_sublane_row":
+            packed = t.T.reshape(tp8.N // 16, 128)  # the script's packing
+            np.testing.assert_array_equal(tp8.pack_nodes(_t(t)).numpy(),
+                                          packed)
+            t = packed
+        want = jax_kernels[f"probe_{probe}"](idx, t)
+        got = getattr(tp8, probe)(_t(idx), _t(t))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_p8_probe_lines_hold_on_the_cpu():
+    assert all(ok for _, ok in tp8.probe_lines("cpu"))
+    assert all(ok for _, ok, _ in tp7.probe_lines("cpu"))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    x = torch.zeros(8, 128)
+    i = torch.zeros(8, 128, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tp3.axis1_gather(x, i.float())
+    with pytest.raises(ValueError):
+        tp3.axis0_gather(x, i)  # [64, 128] wanted
+    with pytest.raises(ValueError):
+        tp4.lane_gathers(x, i, 3)  # K not built
+    with pytest.raises(ValueError):
+        tp4.sublane_gather(x, i, -1)
+    with pytest.raises(ValueError):
+        tp4.row_blocks(torch.zeros(4, 128), torch.zeros(3, dtype=torch.int32))
+    idx = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tp8.dyn_roll(idx, torch.zeros(8, 64))  # fewer than 128 columns
+    with pytest.raises(ValueError):
+        tp7.scalar_load_from_vmem(idx[:0], torch.zeros(8, 128))
+    with pytest.raises(ValueError):
+        tp7.smem_stack_while("meta")
+
+
+def test_dyn_start_is_jax_indexing():
+    i = torch.tensor([-9, -8, -1, 0, 5, 7, 8, 100], dtype=torch.int32)
+    assert probes.dyn_start(i, 8).tolist() == [0, 0, 7, 0, 5, 7, 7, 7]
+    assert probes.dyn_start(i, 8, 4).tolist() == [0, 0, 4, 0, 4, 4, 4, 4]
+
+
+# --- on the card: each kernel against its plain version, bit for bit ---
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _card_cases(a, t8, packed):
+    """kernel -> (wrapper call, plain call) on the tensors `a` (seeded
+    inputs on the card), 64 steps for the loops."""
+    n = 64
+    idx = a["idx8"]
+    return {
+        "gather_axis1": (lambda: tp3.axis1_gather(a["x"], a["idx"], n),
+                         lambda: tp3.axis1_gather_reference(a["x"], a["idx"],
+                                                            n)),
+        "gather_axis0": (lambda: tp3.axis0_gather(a["x0"], a["idx0"], n),
+                         lambda: tp3.axis0_gather_reference(a["x0"],
+                                                            a["idx0"], n)),
+        "crossbar_sublane": (
+            lambda: tp4.sublane_gather(a["x"], a["sub"], n),
+            lambda: tp4.sublane_gather_reference(a["x"], a["sub"], n)),
+        **{f"crossbar_lanes_K{K}": (
+            lambda K=K: tp4.lane_gathers(a["x"], a["idx"], K, n),
+            lambda K=K: tp4.lane_gathers_reference(a["x"], a["idx"], K,
+                                                   n // K)) for K in tp4.KS},
+        "crossbar_fused": (
+            lambda: tp4.fused_lookup(a["x"], a["idx"], a["sub"], n),
+            lambda: tp4.fused_lookup_reference(a["x"], a["idx"], a["sub"],
+                                               n)),
+        "crossbar_rows": (lambda: tp4.row_blocks(a["tab"], a["rows"]),
+                          lambda: tp4.row_blocks_reference(a["tab"],
+                                                           a["rows"])),
+        "crossbar_math": (lambda: tp4.vector_ops(a["x"], n),
+                          lambda: tp4.vector_ops_reference(a["x"], n)),
+        "scalar_load": (
+            lambda: tp7.scalar_load_from_vmem(idx, a["x"]),
+            lambda: tp7.scalar_load_from_vmem_reference(idx, a["x"])),
+        "scalar_extract": (
+            lambda: tp7.scalar_extract(idx, a["x"]),
+            lambda: tp7.scalar_extract_reference(idx, a["x"])),
+        "smem_stack": (lambda: tp7.smem_stack_while(a["x"].device),
+                       lambda: tp7.smem_stack_while_reference(a["x"].device)),
+        "int_vector_ops": (
+            lambda: tp7.int_vector_ops(a["x"].device),
+            lambda: tp7.int_vector_ops_reference(a["x"].device)),
+        **{name: (lambda name=name: getattr(tp8, name)(idx, t8),
+                  lambda name=name: getattr(tp8, f"{name}_reference")(idx,
+                                                                      t8))
+           for name in ("dyn_lane_slice", "dyn_roll", "scalar_dyn_lane")},
+        "dyn_sublane_row": (
+            lambda: tp8.dyn_sublane_row(idx, packed),
+            lambda: tp8.dyn_sublane_row_reference(idx, packed)),
+    }
+
+
+LOOP_KERNELS = ["gather_axis1", "gather_axis0", "crossbar_sublane",
+                *(f"crossbar_lanes_K{K}" for K in tp4.KS), "crossbar_fused",
+                "crossbar_rows", "crossbar_math"]
+FEATURE_KERNELS = ["scalar_load", "scalar_extract", "smem_stack",
+                   "int_vector_ops", "dyn_lane_slice", "dyn_roll",
+                   "scalar_dyn_lane", "dyn_sublane_row"]
+
+
+def _exact_on_card(device, kernel, i):
+    a = {k: torch.as_tensor(v, device=device)
+         for k, v in _seeded_inputs(21).items()}
+    a["idx8"] = torch.tensor([i], dtype=torch.int32, device=device)
+    t8 = torch.as_tensor(np.random.default_rng(22).normal(
+        size=(8, tp8.N)).astype(np.float32), device=device)
+    call, plain = _card_cases(a, t8, tp8.pack_nodes(t8))[kernel]
+    name = kernel.split("_K")[0]
+    before = probes.launch_counts[name]
+    got = call()
+    torch.cuda.synchronize()
+    assert probes.launch_counts[name] == before + 1
+    assert got.device.type == "cuda" and torch.equal(got, plain())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", LOOP_KERNELS)
+def test_loop_kernel_exact_on_card(cuda, kernel):
+    _exact_on_card(cuda, kernel, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", [0, 200, 511, -1, 600])
+@pytest.mark.parametrize("kernel", FEATURE_KERNELS)
+def test_feature_kernel_exact_on_card(cuda, kernel, i):
+    _exact_on_card(cuda, kernel, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [7, 2003])
+def test_row_blocks_exact_on_card_off_the_unroll(cuda, n):
+    """P4-d at step counts that are no multiple of the kernel's unroll by 8:
+    fewer than one unroll (the tail loop alone), and 2,003 (a second chunk
+    of rows staged after the first 1,024, then the tail), with row blocks
+    out of range (from the end, clamped) among them."""
+    rng = np.random.default_rng(23)
+    tab = torch.as_tensor(rng.normal(size=(tp4.TABLE_ROWS, tp4.LANES))
+                          .astype(np.float32), device=cuda)
+    rows = rng.integers(0, tp4.ROW_BLOCKS, n, dtype=np.int32)
+    rows[[0, n // 2, n - 1]] = (-1, 600, 511)
+    rows = torch.as_tensor(rows, device=cuda)
+    before = probes.launch_counts["crossbar_rows"]
+    got = tp4.row_blocks(tab, rows)
+    torch.cuda.synchronize()
+    assert probes.launch_counts["crossbar_rows"] == before + 1
+    assert torch.equal(got, tp4.row_blocks_reference(tab, rows))
