@@ -2,7 +2,7 @@
 
     python chip_smoke.py
 
-Drives `dpt_tpu_torch` only (no JAX, no `dpt_tpu`), in 21 phases, each
+Drives `dpt_tpu_torch` only (no JAX, no `dpt_tpu`), in 23 phases, each
 printing one line or more:
 
   1. device   — a CUDA card of compute capability 9.0; prints
@@ -139,10 +139,31 @@ printing one line or more:
                 computes the same function, the bound, and for the loops
                 ns a step beside the bound of the one SM that runs the
                 block).
+ 22. bench    — `dpt_tpu_torch.bench.main` in this process at full width:
+                the flagship default (1024², 65,024 triangles, 4
+                iterations), `--grad --iters 2` (tape), `--grad
+                --grad-replay --iters 1` and `--scene-family knot --iters
+                2`, each with K1's counts set to 0 before and read after;
+                each JSON line printed as it is, then K1's launches, the
+                peak device memory and the wall time; then `python -m
+                dpt_tpu_torch.bench --quick` in a process of its own.  A
+                run fails on a missing key, a value not finite or not above
+                0, a kernel_mode that does not name the CUDA build, no K1
+                launch, or live_in_by_depth[0] != 1.0.
+ 23. oracle   — the card's renders against the port's scalar oracle
+                (dpt_tpu_torch/oracle/scalar.py) at rtol 1e-3 / atol 2e-3:
+                K1 (`quad`, sylveon512's recipe) on a 300-triangle target
+                of the sphere (224 triangles) at 12², K3 (`brute`,
+                kernels="intersect", box512's recipe) on the box at 12²,
+                each kernel's launches counted; then `validate_bvh` on the
+                flagship's LBVH built on the card (leaf 1, and leaf 8
+                pruned) and its SAH tree.
 
 Then one JSON line with the kernels (each with its design; for K1 and K2
 the primary stream's numbers, the other streams' under "_incoherent" and
-"_bounce"; the probes with the launches of phase 20's or 21's run and, as
+"_bounce"; K1 with the launches of phase 22 as "launches_bench" and K1
+and K3 with those of phase 23 as "launches_oracle"; the probes with the
+launches of phase 20's or 21's run and, as
 "launches_main_path", those of phases 3-19; each primitive probe with its
 CUDA function's `source_line`), and as the last line
 `{"ok": true, "device": {...}}`.  Any failed phase raises, and the script
@@ -1176,6 +1197,15 @@ RANK_TIMEOUT = 240
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
+def child_env():
+    """This process's environment with the checkout first on PYTHONPATH,
+    for the port's programs started as processes of their own."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [x for x in env.get("PYTHONPATH", "").split(os.pathsep) if x])
+    return env
+
+
 def run_cli_ranks(tag, argv_of_rank):
     """The CLI once per rank (RANKS ranks on the one card, gloo by the
     backend rule), all at once; returns [(output, K1 launches)] per rank.
@@ -1183,9 +1213,7 @@ def run_cli_ranks(tag, argv_of_rank):
     from dpt_tpu_torch.dist.launch import RankFailure, free_port, run_ranks
 
     port = free_port()
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [ROOT] + [x for x in env.get("PYTHONPATH", "").split(os.pathsep) if x])
+    env = child_env()
     cmds = [[sys.executable, "-c", RANK_DRIVER, *argv_of_rank(r),
              "--num-processes", str(RANKS), "--process-id", str(r),
              "--coordinator", f"localhost:{port}"] for r in range(RANKS)]
@@ -2027,6 +2055,162 @@ def phase_primitives(device):
     return launches, entries
 
 
+# The bench's JSON keys (bench.py:190-210) and the runs of phase 22: the
+# flagship default (1024², 65,024 triangles, 4 iterations), the tape and the
+# replay step, and the knot scene.
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "step_ms",
+              "rays_per_s_net", "live_in_by_depth", "live_in_res",
+              "kernel_mode", "table_modes", "config")
+BENCH_RUNS = (
+    ("flagship", []),
+    ("tape", ["--grad", "--iters", "2"]),
+    ("replay", ["--grad", "--grad-replay", "--iters", "1"]),
+    ("knot", ["--scene-family", "knot", "--iters", "2"]),
+)
+BENCH_TIMEOUT = 300
+
+
+def check_bench_line(what, text):
+    """The bench's one JSON line in `text`, checked: every key, a finite
+    positive value, the CUDA build named, live_in_by_depth[0] == 1.0."""
+    from dpt_tpu_torch.kernels import build
+
+    lines = [x for x in text.splitlines() if x.strip()]
+    require(len(lines) >= 1, f"[22 bench] {what} printed nothing")
+    out = json.loads(lines[-1])
+    missing = [k for k in BENCH_KEYS if k not in out]
+    require(not missing, f"[22 bench] {what}: keys {missing} missing")
+    require(isinstance(out["value"], (int, float))
+            and np.isfinite(out["value"]) and out["value"] > 0,
+            f"[22 bench] {what}: value {out['value']}")
+    want = f"CUDA sm_90a {build.library_path().name}"
+    require(out["kernel_mode"] == want,
+            f"[22 bench] {what}: kernel_mode {out['kernel_mode']!r}, want "
+            f"{want!r}")
+    require(out["live_in_by_depth"][0] == 1.0,
+            f"[22 bench] {what}: live_in_by_depth {out['live_in_by_depth']}")
+    return lines[-1], out
+
+
+def phase_bench():
+    """`dpt_tpu_torch.bench.main` in this process for each of BENCH_RUNS
+    (K1's launch counts set to 0 before each, read after), then
+    `python -m dpt_tpu_torch.bench --quick` in a process of its own.
+    Returns K1's launches over the in-process runs, by mode."""
+    from dpt_tpu_torch import bench
+    from dpt_tpu_torch.kernels import quad
+
+    tag = "22 bench"
+    total = {"nearest": 0, "occluded": 0}
+    for name, argv in BENCH_RUNS:
+        quad.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            bench.main(argv)
+        wall = time.perf_counter() - t0
+        counts, designs = dict(quad.launch_counts), dict(quad.design_counts)
+        line, res = check_bench_line(name, out.getvalue())
+        require(sum(counts.values()) > 0, f"[{tag}] {name}: K1 not launched")
+        for k in total:
+            total[k] += counts[k]
+        print(line, flush=True)
+        print(f"[{tag}] {name} ({' '.join(argv) or 'defaults'}): "
+              f"{res['value']:.6g} gross rays/s, step {res['step_ms']} ms; "
+              f"K1 launches {counts}, by design {designs}; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+              f"wall {wall:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dpt_tpu_torch.bench", "--quick"], cwd=ROOT,
+        env=child_env(), capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"[{tag}] python -m dpt_tpu_torch.bench "
+            f"--quick exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    line, res = check_bench_line("--quick", proc.stdout)
+    print(line, flush=True)
+    print(f"[{tag}] python -m dpt_tpu_torch.bench --quick: "
+          f"{res['value']:.6g} gross rays/s at 256^2, step "
+          f"{res['step_ms']} ms; wall {wall:.1f} s", flush=True)
+    return total
+
+
+def phase_oracle(device):
+    """The card's renders against the port's scalar oracle: K1 (quad) on a
+    300-triangle target of the sphere at 12², K3 (brute, intersect) on the
+    box at 12²; then validate_bvh on the flagship's LBVH built on the card
+    and its SAH tree.  Returns the launches of each kernel, by mode."""
+    from dpt_tpu_torch.accel.bvh import (
+        build_accel,
+        build_bvh_sah,
+        prune_bvh,
+        validate_bvh,
+    )
+    from dpt_tpu_torch.accel.lbvh import build_lbvh
+    from dpt_tpu_torch.config import preset
+    from dpt_tpu_torch.kernels import intersect, quad
+    from dpt_tpu_torch.oracle.scalar import render_oracle
+    from dpt_tpu_torch.render.renderer import render_sample
+    from dpt_tpu_torch.scene.builder import cornell_box_scene, procedural_scene
+    from dpt_tpu_torch.scene.camera import OrbitCamera
+
+    tag = "23 oracle"
+    moved = OrbitCamera().view_update(120.0, -60.0).zoom_update(0.9)
+    cases = (
+        ("K1", quad, procedural_scene(300, device=device),
+         OrbitCamera().camera(device), preset("sylveon512", width=12,
+                                              height=12)),
+        ("K3", intersect, cornell_box_scene(device=device),
+         moved.camera(device), preset("box512", width=12, height=12,
+                                      kernels="intersect")),
+    )
+    launches = {}
+    for name, module, scene, camera, cfg in cases:
+        accel = build_accel(scene, cfg)
+        module.reset_launch_counts()
+        img = render_sample(scene, camera, cfg, 0, accel)
+        torch.cuda.synchronize()
+        launches[name] = dict(module.launch_counts)
+        require(sum(launches[name].values()) > 0,
+                f"[{tag}] {name} not launched")
+        image_ok(img, (12, 12, 3), f"{name} render")
+        t0 = time.perf_counter()
+        ref = torch.as_tensor(render_oracle(scene, camera, cfg, 0),
+                              dtype=torch.float32)
+        oracle_s = time.perf_counter() - t0
+        img = img.cpu()
+        bad = ~torch.isclose(img, ref, rtol=1e-3, atol=2e-3)
+        print(f"[{tag}] {name} ({cfg.traversal}, {scene.n_triangles} tris, "
+              f"{cfg.max_depth} bounces, {cfg.spp} spp) 12^2 against the "
+              f"oracle: max |diff| {float((img - ref).abs().max()):.3g}, "
+              f"{int(bad.any(-1).sum())} of 144 pixels outside rtol 1e-3 / "
+              f"atol 2e-3; launches {launches[name]}; oracle {oracle_s:.1f} s",
+              flush=True)
+        require(not bool(bad.any()), f"[{tag}] {name} render differs from "
+                "the oracle")
+
+    flagship = procedural_scene(FLAGSHIP_TRIS_TARGET, device=device)
+    t0 = time.perf_counter()
+    trees = {
+        "lbvh leaf 1": build_lbvh(flagship.vertices, flagship.indices),
+        "lbvh leaf 8 pruned": prune_bvh(build_lbvh(
+            flagship.vertices, flagship.indices, leaf_size=8)),
+        "sah leaf 8": build_bvh_sah(flagship.vertices.cpu().numpy(),
+                                    flagship.indices.cpu().numpy()),
+    }
+    require(trees["lbvh leaf 1"].tri_order.is_cuda, "the LBVH is not on the "
+            "card")
+    for tree in trees.values():
+        validate_bvh(tree, flagship.vertices, flagship.indices)
+    print(f"[{tag}] validate_bvh passed on the flagship's "
+          f"({flagship.n_triangles} tris) " + ", ".join(
+              f"{k} ({v.node_left.shape[0]} nodes)" for k, v in trees.items())
+          + f" in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def probe_entries(launches, main_path_launches, entries):
     """The kernels-line entries of the probes: launches from the probes'
     path run (phase 20 or 21), launches_main_path from phases 3-19, the
@@ -2107,6 +2291,8 @@ def main():
     probe_launches, probe_stats = phase_probes(device,
                                                main_path_probe_launches)
     primitive_launches, primitive_stats = phase_primitives(device)
+    bench_counts = phase_bench()
+    oracle_counts = phase_oracle(device)
 
     # No PyTorch call computes a BVH walk, the brute-force nearest hit or a
     # probe's chains, so library_ms is null; phase 21 times one where a
@@ -2117,6 +2303,8 @@ def main():
                      for r, c in enumerate(sharded_opt_counts)})
     kernels = (kernel_entries("quad_traverse", k1, render_counts,
                               launches_optimize=quad_counts,
+                              launches_bench=bench_counts,
+                              launches_oracle=oracle_counts["K1"],
                               launches_lbvh=lbvh_counts,
                               launches_wavefront=wavefront_counts,
                               **{f"launches_compact_frac_{f}": c
@@ -2125,7 +2313,8 @@ def main():
                + kernel_entries("wide_traverse", k2, wide_counts)
                + kernel_entries("intersect_nearest",
                                 {s: {"nearest": v} for s, v in k3.items()},
-                                box_counts)
+                                box_counts,
+                                launches_oracle=oracle_counts["K3"])
                + probe_entries(probe_launches, main_path_probe_launches,
                                probe_stats)
                + probe_entries(primitive_launches, main_path_probe_launches,

@@ -278,6 +278,41 @@ def prune_bvh(bvh: BVH) -> BVH:
                tri_order=_numpy(bvh.tri_order))
 
 
+def validate_bvh(bvh: BVH, vertices, indices) -> None:
+    """Structural invariants: every triangle referenced exactly once; child
+    AABBs contained in parents.  Raises AssertionError on violation.
+
+    A copy of `dpt_tpu.accel.bvh.validate_bvh` that also takes a tree of
+    tensors (the LBVH's, on the card): it is read to the host once.  The
+    checks raise explicitly, so they hold under `python -O` too.
+    `vertices` and `indices` are not read, as in the JAX package."""
+    order = _numpy(bvh.tri_order)
+    if sorted(order.tolist()) != list(range(len(order))):
+        raise AssertionError("tri_order is not a permutation of the "
+                             "triangle ids")
+    nmin = _numpy(bvh.node_min)
+    nmax = _numpy(bvh.node_max)
+    left = _numpy(bvh.node_left)
+    right = _numpy(bvh.node_right)
+    seen = np.zeros(len(order), bool)
+    for nid in range(len(left)):
+        if left[nid] < 0:
+            first, count = right[nid], -left[nid]
+            for s in range(first, first + count):
+                if seen[order[s]]:
+                    raise AssertionError(
+                        f"triangle {order[s]} is referenced twice")
+                seen[order[s]] = True
+        else:
+            for c in (left[nid], right[nid]):
+                if not (np.all(nmin[c] >= nmin[nid] - 1e-5)
+                        and np.all(nmax[c] <= nmax[nid] + 1e-5)):
+                    raise AssertionError(
+                        f"node {c}'s box is not inside its parent {nid}'s")
+    if not seen.all():
+        raise AssertionError(f"{int((~seen).sum())} triangles in no leaf")
+
+
 #: Traversals that walk a packed table built on the host; the LBVH is
 #: pruned for these (as in the JAX package, `threaded` too).
 PRUNED_TRAVERSALS = ("quad", "pallas", "threaded")

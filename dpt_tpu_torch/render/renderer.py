@@ -1,6 +1,7 @@
 """Render drivers: one sample batch, accumulation, and the progressive loop.
 
-Counterpart of `dpt_tpu/render/renderer.py` (`render_sample`, the tape's
+Counterpart of `dpt_tpu/render/renderer.py` (`render_rays`,
+`render_sample`, the tape's
 `render_sample_taped` / `render_sample_playback`, `accumulate`, `render`,
 the pipelined `render_progressive` with camera-source reset and
 checkpoints, and the `live_fraction_by_depth` / `auto_compact_frac`
@@ -64,6 +65,20 @@ def _accumulate_spp(one_spp, cfg: RenderConfig, n_rays: int, device,
             acc = acc + (_checkpointed(one_spp, s) if cfg.remat_bounces
                          else one_spp(s))
     return acc
+
+
+def render_rays(scene, camera, cfg: RenderConfig, sample_batch, accel=None,
+                pixels=None):
+    """Trace one sub-sample for a set of pixels (all of them without
+    `pixels=(px, py)`, flat index tensors); returns radiance [R, 3].
+    `sample_batch` seeds the rays as it is, with no spp sub-batch."""
+    nearest = make_nearest(scene, cfg, accel)
+    occluded = make_occluded(scene, cfg, accel)
+    px, py = pixels if pixels is not None else (None, None)
+    origin, direction, state = generate_rays(camera, cfg, sample_batch, px,
+                                             py)
+    return trace_paths(origin, direction, state, scene, nearest, cfg,
+                       occluded)
 
 
 def render_sample(scene, camera, cfg: RenderConfig, sample_batch, accel=None,

@@ -184,6 +184,7 @@ def test_import_leaves_jax_out():
         "import dpt_tpu_torch.probes.probe_pallas\n"
         "import dpt_tpu_torch.probes.probe_pallas2\n"
         "import dpt_tpu_torch.probes.rows_ablation\n"
+        "import dpt_tpu_torch.bench, dpt_tpu_torch.oracle.scalar\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'dpt_tpu'))\n"
