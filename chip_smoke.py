@@ -10,7 +10,8 @@ printing one line or more:
   2. build    — compiles the kernels from csrc/ (one nvcc per source, all
                 at once) and prints the build time and each kernel's
                 registers, local bytes per thread and resident blocks per
-                SM.
+                SM (K3's also its dynamic shared memory, at the geometry of
+                each phase-9 stream).
   3. K1       — csrc/quad_traverse.cu against its plain PyTorch walk on the
                 card, at the flagship tables (65,024 triangles, SAH leaf 8,
                 packed 4-wide), on the 1024² primary stream, on 2**18
@@ -52,9 +53,15 @@ printing one line or more:
                 tests' tolerance).
   9. K3       — csrc/intersect_nearest.cu against its plain PyTorch version
                 on the card: box512's 512² primary stream over the box (12
-                triangles) and 2**16 incoherent rays over the procedural
-                sphere of 3,720 triangles; hit, tri and t exact.  Median ms
-                over 5 calls with varied inputs, and the bound.
+                triangles), its compacted chunk (2**16 rays leaving the
+                box) and 2**16 incoherent rays over the procedural sphere
+                of 3,720 triangles; hit, tri and t exact through the
+                wrapper and in every geometry (rays per thread x blocks per
+                cluster x threads per block, forced through `_launch`).
+                Median ms over 5 calls with varied inputs, the kernel's
+                device ms at the geometry the wrapper picks, its share of
+                the bound, registers, dynamic shared memory and blocks per
+                SM.
  10. box      — the box-scale path: `render_progressive` at box512 with
                 kernels="intersect" (512², 4 bounces, SSS, Russian roulette,
                 16 spp per batch), 4 batches through a camera source with a
@@ -279,7 +286,11 @@ DESIGNS = {
         "ahead, near child taken without a push; per-lane stack in local "
         "memory"),
     "intersect_nearest": (
-        "one thread per ray over every table row, broadcast loads"),
+        "R rays per thread (1 or 2), the table's rows split over a "
+        "cluster of S blocks (1 or 2, merged by rank 0 through "
+        "distributed shared memory), tiles of 16 rows bulk-copied into a "
+        "3-stage shared-memory ring; the geometry picked per stream by "
+        "kernels/intersect.py _geometry"),
     "smem_walk": (
         "K1's lane walk (nearest), blocks of 128 or 1024 threads; the first "
         "n_staged records (whole BFS levels) copied to dynamic shared memory "
@@ -330,6 +341,14 @@ PROBE_ITERS = 64
 K3_TRIS_TARGET = 4000
 K3_TRIS = 3720
 K3_INCOHERENT_RAYS = 1 << 16
+# box512's compacted chunk: compact_frac 0.25 of its 512² lanes, the
+# stream of 240 of the 256 K3 launches of a 16-spp batch.
+K3_BOUNCE_RAYS = 1 << 16
+# Phase 9's streams: (rays, table rows).  The box's 12 triangles fill 2
+# rows.
+K3_STREAMS = {"primary": (512 * 512, 2),
+              "incoherent": (K3_INCOHERENT_RAYS, K3_TRIS // 8),
+              "bounce": (K3_BOUNCE_RAYS, 2)}
 BOX_BATCHES = 4
 GRAD_RTOL, GRAD_ATOL_REL = 1e-3, 1e-4
 
@@ -360,16 +379,24 @@ def phase_device():
 def phase_build():
     from dpt_tpu_torch.kernels import build
 
+    from dpt_tpu_torch.kernels import intersect as K
+
     t0 = time.perf_counter()
     build.load_library()
     wall = time.perf_counter() - t0
     attrs = {(k, m): build.kernel_attributes(k, m == "occluded")
-             for k, modes in build.KERNEL_MODES.items() for m in modes}
+             for k in build.WALKS for m in build.KERNEL_MODES[k]}
+    for stream, (n_rays, n_rows) in K3_STREAMS.items():
+        g = K._geometry(n_rays, n_rows)
+        attrs[(f"{build.INTERSECT} {stream} {k3_geometry_name(g)}",
+               "nearest")] = build.intersect_attributes(g, n_rows)
     print(f"[2 build] {len(build.KERNEL_MODES)} kernels built in "
           f"{build.build_seconds:.2f} s (load {wall:.2f} s); registers/local "
-          "bytes per thread/resident blocks per SM: "
+          "bytes per thread/resident blocks per SM (K3: /dynamic shared "
+          "bytes, at the geometry each phase-9 stream takes): "
           + ", ".join(f"{k}<{m}> {a['num_regs']}/{a['local_bytes']}/"
                       f"{a['blocks_per_sm']}"
+                      + (f"/{a['smem_bytes']}" if "smem_bytes" in a else "")
                       for (k, m), a in attrs.items()), flush=True)
     return attrs
 
@@ -435,11 +462,12 @@ def design_of(name):
     return "group" if ", 4>" in name else "lane"
 
 
-def kernel_device_ms(fns, inputs, kernel, windows=3):
+def kernel_device_ms(fns, inputs, kernel, windows=3, design=design_of):
     """Mean device time of one launch of `kernel` (csrc/<kernel>.cu's
     `<kernel>_kernel`) per design, from torch.profiler: `fns` maps each
     design to a call, and every call runs once on each input in one
-    profiler window; the launches are told apart by design_of.  The kernel
+    profiler window; the launches are told apart by `design` (a function
+    of the kernel's name; default design_of).  The kernel
     alone, without its wrapper's host work.  The profiler may miss
     launches at the start of its window: a first kernel opens it, the mean
     is over the launches it saw, and a window that saw none of a design's
@@ -467,7 +495,7 @@ def kernel_device_ms(fns, inputs, kernel, windows=3):
         for e in prof.events():
             if (e.device_type == DeviceType.CUDA
                     and f"{kernel}_kernel" in e.name):
-                times.setdefault(design_of(e.name), []).append(
+                times.setdefault(design(e.name), []).append(
                     e.time_range.elapsed_us() / 1e3)
         seen = {d: len(ts) for d, ts in times.items()}
         if all(0 < n <= len(inputs) for n in seen.values()):
@@ -917,86 +945,131 @@ def phase_grads(device):
               "max|g|)", flush=True)
 
 
-def k3_bound(n_rays, n_rows):
+def k3_bound(n_rays, n_rows, n_tris):
     """(bound_ms, bound_by) of one K3 call: rays in (24 B) and out (8 B)
-    and the table read once, over the HBM rate, against 8 slot tests per
-    table row for every ray (padded slots count: the kernel tests them) at
-    FLOPS_PER_TRI_TEST each, over the unfused float32 rate."""
+    and the table of `n_rows` rows read once, over the HBM rate, against a
+    test of every ray against each of the `n_tris` triangles at
+    FLOPS_PER_TRI_TEST each, over the unfused float32 rate.  The padded
+    slots of the table's last row are not counted (pass `8 * n_rows` for
+    the work the kernel does, padding included)."""
     nbytes = 32 * n_rays + 4 * 128 * n_rows
-    flops = n_rays * 8 * n_rows * FLOPS_PER_TRI_TEST
+    flops = n_rays * n_tris * FLOPS_PER_TRI_TEST
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_F32_UNFUSED_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def k3_geometry_name(g):
+    return f"R{g.rays_per_thread} S{g.cluster} T{g.threads}"
+
+
 def compare_k3(name, inputs, tris, eps, tag):
     """K3 against its plain version on one stream: hit, tri and t exact on
-    every input; median ms of both and the bound."""
+    every input, through the wrapper (the geometry it picks) and in every
+    geometry (forced through `_launch`); median ms of the wrapper and the
+    plain version, the kernel's device ms in the picked geometry, its
+    attributes, and the bound."""
+    from dpt_tpu_torch.kernels import build
     from dpt_tpu_torch.kernels import intersect as K
 
     max_err = 0.0
     hit_frac = None
     for o, d in inputs:
-        kh, kt, ki = K.intersect_nearest(o, d, tris, eps)
         ph, pt, pi = K.intersect_nearest_reference(o, d, tris, eps)
+        runs = [("wrapper", K.intersect_nearest(o, d, tris, eps))]
+        for g in K.GEOMETRIES:
+            t, i = K._launch(o, d, tris, eps, g)
+            runs.append((k3_geometry_name(g), (t < K.T_MAX, t, i)))
         torch.cuda.synchronize()
-        require(torch.equal(kh, ph), f"K3 {name}: hit differs")
-        require(torch.equal(ki, pi), f"K3 {name}: tri differs")
-        require(torch.equal(kt, pt), f"K3 {name}: t differs")
-        max_err = max(max_err, float((kt - pt).abs().max()))
+        for what, (kh, kt, ki) in runs:
+            require(torch.equal(kh, ph), f"K3 {name} ({what}): hit differs")
+            require(torch.equal(ki, pi), f"K3 {name} ({what}): tri differs")
+            require(torch.equal(kt, pt), f"K3 {name} ({what}): t differs")
+            max_err = max(max_err, float((kt - pt).abs().max()))
         if hit_frac is None:
-            hit_frac = float(kh.float().mean())
+            hit_frac = float(ph.float().mean())
     require(0.0 < hit_frac, f"K3 {name}: no ray hit")
     n_rays, n_rows = inputs[0][0].shape[0], tris.shape[0]
+    n_tris = int(tris.reshape(-1, 16)[:, 10].sum())
+    g = K._geometry(n_rays, n_rows)
+
     def run(o, d):
         return K.intersect_nearest(o, d, tris, eps)
 
     out = {
         "ms": median_ms(run, inputs),
-        "kernel_ms": kernel_device_ms({"lane": run}, inputs,
-                                      "intersect_nearest")["lane"],
+        "kernel_ms": kernel_device_ms({"k3": run}, inputs,
+                                      "intersect_nearest",
+                                      design=lambda _: "k3")["k3"],
         "plain_ms": median_ms(
             lambda o, d: K.intersect_nearest_reference(o, d, tris, eps),
             inputs),
         "max_abs_err": max_err,
+        "n_rays": n_rays,
+        "n_rows": n_rows,
+        "n_tris": n_tris,
+        "geometry": k3_geometry_name(g),
+        **build.intersect_attributes(g, n_rows),
     }
-    out["bound_ms"], out["bound_by"] = k3_bound(n_rays, n_rows)
+    out["bound_ms"], out["bound_by"] = k3_bound(n_rays, n_rows, n_tris)
+    out["bound_share"] = out["bound_ms"] / out["kernel_ms"]
+    padded_ms, _ = k3_bound(n_rays, n_rows, 8 * n_rows)
+    out["padded_share"] = padded_ms / out["kernel_ms"]
     print(f"[{tag}] {name}: R={n_rays}, {n_rows} table rows "
-          f"({8 * n_rows} slots), hit {hit_frac:.4f}; exact on "
+          f"({8 * n_rows} slots, {n_tris} triangles), hit {hit_frac:.4f}; "
+          f"wrapper and {len(K.GEOMETRIES)} geometries exact on "
           f"{len(inputs)} inputs; {out['ms']:.4f} ms (kernel "
-          f"{out['kernel_ms']:.4f}, plain "
-          f"{out['plain_ms']:.3f}, bound {out['bound_ms']:.4f} by "
-          f"{out['bound_by']})", flush=True)
+          f"{out['kernel_ms']:.4f} at {out['geometry']}, "
+          f"{out['bound_share']:.1%} of the bound {out['bound_ms']:.4f} by "
+          f"{out['bound_by']}, {out['padded_share']:.1%} counting the "
+          f"padded slots too; plain {out['plain_ms']:.3f}); "
+          f"{out['num_regs']} registers, "
+          f"{out['local_bytes']} local bytes, {out['smem_bytes']} dynamic "
+          f"shared bytes, {out['blocks_per_sm']} blocks per SM, "
+          f"{out['max_clusters']} clusters at once", flush=True)
     return out
 
 
 def phase_k3(device):
-    """K3 against its plain version on box512's primary stream over the box
-    and on incoherent rays over a table of real size."""
+    """K3 against its plain version on box512's primary stream over the
+    box, on its compacted chunk over the box and on incoherent rays over a
+    table of real size."""
     from dpt_tpu_torch.config import preset
     from dpt_tpu_torch.kernels.intersect import pack_tris
     from dpt_tpu_torch.scene.builder import cornell_box_scene, procedural_scene
     from dpt_tpu_torch.scene.camera import OrbitCamera
 
     tag = "9 K3"
+    t_phase = time.perf_counter()
     cfg = preset("box512", kernels="intersect")
     box = cornell_box_scene(device=device)
     camera = OrbitCamera().camera(device)
     prim = [primary_rays(camera, cfg, b, 300 + b, device)[:2]
             for b in range(TIMED_CALLS)]
+    bounce = [incoherent_rays(box, K3_BOUNCE_RAYS, 600 + k, device)[:2]
+              for k in range(TIMED_CALLS)]
     sphere = procedural_scene(K3_TRIS_TARGET, device=device)
     require(sphere.n_triangles == K3_TRIS,
             f"K3 sphere has {sphere.n_triangles} triangles")
     inco = [incoherent_rays(sphere, K3_INCOHERENT_RAYS, 400 + k, device)[:2]
             for k in range(TIMED_CALLS)]
-    return {
+    box_tris = pack_tris(*box.tri_vertices())
+    out = {
         "primary": compare_k3("box512 primary 512^2, box (12 tris)", prim,
-                              pack_tris(*box.tri_vertices()), cfg.eps, tag),
+                              box_tris, cfg.eps, tag),
         "incoherent": compare_k3(
             f"incoherent 2^16, sphere ({K3_TRIS} tris)", inco,
             pack_tris(*sphere.tri_vertices()), cfg.eps, tag),
+        "bounce": compare_k3(
+            f"box512 compacted chunk {K3_BOUNCE_RAYS}, box (12 tris)",
+            bounce, box_tris, cfg.eps, tag),
     }
+    for stream, shape in K3_STREAMS.items():
+        got = (out[stream]["n_rays"], out[stream]["n_rows"])
+        require(got == shape, f"K3 {stream} stream: {got}, want {shape}")
+    print(f"[{tag}] took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
 
 
 def nearest_queries_per_sample(cfg):
@@ -2230,7 +2303,8 @@ def probe_entries(launches, main_path_launches, entries):
 # under these names, every other stream's with "_<stream>" appended.
 ENTRY_KEYS = ("ms", "kernel_ms", "kernel_ms_lane", "kernel_ms_group",
               "variant", "plain_ms", "bound_ms", "bound_by",
-              "lane_utilisation")
+              "lane_utilisation", "geometry", "bound_share", "num_regs",
+              "smem_bytes", "blocks_per_sm")
 
 
 def kernel_entries(kernel, stats, launches, **extra):

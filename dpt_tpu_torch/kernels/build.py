@@ -50,8 +50,10 @@ NVCC_FLAGS = (
 # csrc/wide_traverse.cu).
 WALKS = ("quad_traverse", "quad_traverse_group", "wide_traverse")
 # The brute-force search K3 (pallas_intersect), exported by
-# csrc/intersect_nearest.cu as `dpt_intersect_nearest` (rays, table, R,
-# n_rows, eps: `launch_intersect`) and `dpt_intersect_nearest_attrs`.
+# csrc/intersect_nearest.cu as `dpt_intersect_nearest` (rays, table, ray
+# and row counts, eps, outputs, then the geometry and the grid:
+# `launch_intersect`) and `dpt_intersect_nearest_attrs` (per geometry and
+# table size: `intersect_attributes`).
 INTERSECT = "intersect_nearest"
 # Every kernel of the library -> its modes.
 KERNEL_MODES = {**{k: ("nearest", "occluded") for k in WALKS},
@@ -159,12 +161,15 @@ def load_library() -> ctypes.CDLL:
         launch.argtypes = [p, p, p, p, p, i, i, p, p, p]
         launch.restype = i
     launch = getattr(lib, f"dpt_{INTERSECT}")
-    launch.argtypes = [p, p, p, i, i, ctypes.c_float, p, p, p]
+    launch.argtypes = [p, p, p, i, i, ctypes.c_float, p, p, i, i, i, i, p]
     launch.restype = i
-    for name in KERNEL_MODES:
+    for name in WALKS:
         attrs = getattr(lib, f"dpt_{name}_attrs")
         attrs.argtypes = [i, *[ctypes.POINTER(i)] * 3]
         attrs.restype = i
+    attrs = getattr(lib, f"dpt_{INTERSECT}_attrs")
+    attrs.argtypes = [i, i, i, i, *[ctypes.POINTER(i)] * 5]
+    attrs.restype = i
     lib.dpt_cuda_error_string.argtypes = [i]
     lib.dpt_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -211,7 +216,10 @@ def load_probe_library() -> ctypes.CDLL:
 
 def kernel_attributes(kernel: str, occluded: bool) -> dict:
     """Registers and local bytes per thread, and resident blocks per SM, of
-    one kernel of KERNEL_MODES in one mode."""
+    one walk kernel of WALKS in one mode (K3's: `intersect_attributes`)."""
+    if kernel == INTERSECT:
+        raise ValueError(f"{INTERSECT} has a geometry and a table size: "
+                         "use intersect_attributes")
     modes = KERNEL_MODES.get(kernel)
     if modes is None:
         raise ValueError(f"unknown kernel {kernel!r}; known: "
@@ -226,6 +234,23 @@ def kernel_attributes(kernel: str, occluded: bool) -> dict:
         raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
     return dict(zip(("num_regs", "local_bytes", "blocks_per_sm"),
                     (v.value for v in vals)))
+
+
+def intersect_attributes(geometry, n_rows: int) -> dict:
+    """Registers and local bytes per thread, resident blocks per SM,
+    dynamic shared memory bytes and the clusters the card holds at once,
+    of K3 in `geometry` (rays per thread, blocks per cluster, threads per
+    block) over a table of n_rows rows."""
+    lib = load_library()
+    vals = [ctypes.c_int(0) for _ in range(5)]
+    err = getattr(lib, f"dpt_{INTERSECT}_attrs")(
+        *(int(v) for v in geometry), int(n_rows),
+        *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"{INTERSECT} attributes at {tuple(geometry)}: "
+                           f"cudaError {err}")
+    return dict(zip(("num_regs", "local_bytes", "blocks_per_sm",
+                     "smem_bytes", "max_clusters"), (v.value for v in vals)))
 
 
 def check_rays(origin, direction, max_dist=None):
@@ -280,10 +305,15 @@ def launch_walk(kernel, origin, direction, max_dist, nodes, tris,
     return out_t, out_i
 
 
-def launch_intersect(origin, direction, tris, eps: float):
-    """Launch K3 on the current stream: (t [R] f32, tri [R] int32), t 1e30
-    and tri 0 on a miss.  The caller has checked the rays and the table;
-    this checks the table's alignment and the launch's error."""
+def launch_intersect(origin, direction, tris, eps: float, geometry,
+                     blocks: int):
+    """Launch K3 on the current stream in `geometry` (rays per thread,
+    blocks per cluster, threads per block) over `blocks` blocks: (t [R]
+    f32, tri [R] int32), t 1e30 and tri 0 on a miss.  The caller has
+    checked the rays and the table and computed the grid; this checks the
+    table's alignment and the launch's error (a geometry the library does
+    not build, a grid that does not cover the rays once, or a refused
+    cluster or shared-memory request raises)."""
     R = origin.shape[0]
     out_t = torch.empty((R,), dtype=torch.float32, device=origin.device)
     out_i = torch.empty((R,), dtype=torch.int32, device=origin.device)
@@ -298,6 +328,7 @@ def launch_intersect(origin, direction, tris, eps: float):
         *(ctypes.c_void_p(x.data_ptr()) for x in tensors),
         ctypes.c_int(R), ctypes.c_int(tris.shape[0]), ctypes.c_float(eps),
         ctypes.c_void_p(out_t.data_ptr()), ctypes.c_void_p(out_i.data_ptr()),
+        *(ctypes.c_int(int(v)) for v in geometry), ctypes.c_int(blocks),
         ctypes.c_void_p(stream),
     )
     check_launch(lib, INTERSECT, err)

@@ -13,6 +13,9 @@ against every triangle.
     (csrc/intersect_nearest.cu) for CUDA tensors and runs the plain PyTorch
     version (`intersect_nearest_reference`) for CPU tensors.  There is no
     fallback between the two: a CUDA tensor launches the kernel or raises.
+    The kernel's geometry (rays per thread, blocks per cluster, each
+    scanning a slice of the table, and threads per block) is picked here
+    from the ray and row counts (`_geometry`); `_launch` can force one.
 
 Both run the walks' Möller–Trumbore leaf test (quad.py `_leaf_tests`,
 traverse_common.cuh `leaf_row`) with the caller's `eps`, in the TPU
@@ -23,6 +26,8 @@ agree exactly.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -37,6 +42,54 @@ _CHUNK_ELEMS = 1 << 24
 # Kernel launches.  The wrapper adds one where it launches the CUDA kernel
 # and nowhere else; the plain version does not count.
 launch_counts = {"nearest": 0}
+
+
+# The kernel's geometries (csrc/intersect_nearest.cu `kernel_of`): rays per
+# thread and blocks per cluster are template arguments, threads per block
+# a launch parameter.
+RAYS_PER_THREAD = (1, 2)
+CLUSTER_BLOCKS = (1, 2)
+THREADS = (128, 256)
+
+
+class Geometry(NamedTuple):
+    rays_per_thread: int  # R: each slot read from shared memory serves R
+    cluster: int  # S: blocks of a cluster, each a slice of the table's rows
+    threads: int  # per block
+
+
+# Every geometry `_launch` accepts.
+GEOMETRIES = tuple(Geometry(r, c, t) for r in RAYS_PER_THREAD
+                   for c in CLUSTER_BLOCKS for t in THREADS)
+# The crossovers of `_geometry`, timed on the H100 by
+# scripts/torch_k3_geometry.py (PERF.md §6): a stream of at least
+# _MANY_RAYS rays fills the card; a table longer than _UNSPLIT_ROWS rows
+# (the box's) is split over a cluster of 2.
+_MANY_RAYS = 1 << 16
+_UNSPLIT_ROWS = 2
+
+
+def _geometry(n_rays: int, n_rows: int) -> Geometry:
+    """The geometry the wrapper launches for `n_rays` rays over a table of
+    `n_rows` rows (PERF.md §6).
+
+    Long streams (box512's, phase 9's sphere) fill the card with two rays
+    a thread in blocks of 256; short ones (the oracle's 144 rays) take one
+    ray a thread in blocks of 128.  Tables longer than the box's are split
+    over clusters of 2: at two rays a thread 2^16 rays fill only 128
+    unsplit blocks, fewer than the card's 132 SMs, which the box's 2 rows
+    are too short to feel."""
+    cluster = 2 if n_rows > _UNSPLIT_ROWS else 1
+    if n_rays >= _MANY_RAYS:
+        return Geometry(2, cluster, 256)
+    return Geometry(1, cluster, 128)
+
+
+def _blocks(n_rays: int, g: Geometry) -> int:
+    """Blocks of a launch: each ray in one block of every cluster (S
+    blocks, one slice each), R x threads rays a cluster."""
+    per_cluster = g.rays_per_thread * g.threads
+    return -(-n_rays // per_cluster) * g.cluster
 
 
 def reset_launch_counts() -> None:
@@ -100,12 +153,18 @@ def _check_inputs(origin, direction, tris):
         raise ValueError(f"tris holds more than {MAX_TRIS} slots")
 
 
-def _launch(origin, direction, tris, eps):
-    """Launch K3 on the current stream: (t [R] f32, tri [R] int32)."""
+def _launch(origin, direction, tris, eps, geometry=None):
+    """Launch K3 on the current stream: (t [R] f32, tri [R] int32), in
+    `geometry` (default: the one `_geometry` picks)."""
     from dpt_tpu_torch.kernels.build import launch_intersect
 
-    out = launch_intersect(origin, direction, tris, float(eps))
-    if origin.shape[0]:
+    n_rays, n_rows = origin.shape[0], tris.shape[0]
+    g = _geometry(n_rays, n_rows) if geometry is None else Geometry(*geometry)
+    if g not in GEOMETRIES:
+        raise ValueError(f"K3 has no geometry {tuple(g)}")
+    out = launch_intersect(origin, direction, tris, float(eps), g,
+                           _blocks(n_rays, g))
+    if n_rays:
         launch_counts["nearest"] += 1
     return out
 

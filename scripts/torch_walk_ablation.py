@@ -6,10 +6,10 @@
         [--inputs 5] [--rounds 2] [--reps 2]
 
 Each `--variant` is a directory of kernel sources (`*.cu`, `*.cuh`), built
-here by one `nvcc` over its `.cu` files with `kernels/build.py`'s flags
-into a library of its own under `dpt_tpu_torch/_build/ablation/`; with
-none, the package's own `dpt_tpu_torch/csrc` is timed as "tree".  Each
-library is bound by ctypes to its own C interface: the launches
+by `kernels/build.py` `build` (one `nvcc` a `.cu` file, with its flags)
+into a library of its own under `dpt_tpu_torch/_build/`; with none, the
+package's own `dpt_tpu_torch/csrc` is timed as "tree".  Each library is
+bound by ctypes to its own C interface: the launches
 `dpt_quad_traverse` and `dpt_wide_traverse` (the same arguments in every
 build since the port began), and K1's one-ray-per-group-of-four-lanes
 launch `dpt_quad_traverse_group` where the build exports it.  Every build
@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import pathlib
 import re
@@ -64,18 +63,10 @@ EXPORTS = {"lane": {"quad_traverse": "dpt_quad_traverse",
 
 
 def build_library(csrc: pathlib.Path) -> ctypes.CDLL:
-    """Compile every .cu of `csrc` into one library keyed by the sources'
-    hash and bind its walk launches."""
-    srcs = sorted(csrc.glob("*.cu"))
-    h = hashlib.sha256()
-    for p in srcs + sorted(csrc.glob("*.cuh")):
-        h.update(p.name.encode() + p.read_bytes())
-    out = build.BUILD_DIR / "ablation" / f"lib_{h.hexdigest()[:16]}.so"
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared",
-                        "-o", str(out), *map(str, srcs)], check=True)
-    lib = ctypes.CDLL(str(out))
+    """Compile every .cu of `csrc` into one library keyed by the sources
+    (kernels/build.py `build`) and bind its walk launches."""
+    lib = ctypes.CDLL(str(build.build(
+        "libablation", sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")))))
     p, i = ctypes.c_void_p, ctypes.c_int
     for per_kernel in EXPORTS.values():
         for name in per_kernel.values():
