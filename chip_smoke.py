@@ -119,9 +119,13 @@ printing one line or more:
                 file:line; the compacted batch may not have more.
  20. probes   — the walk probes (dpt_tpu_torch/probes/, csrc/probes/,
                 built at first use into their own library): P5 and P6
-                (interleave.cu) at P = 1, 2, 4, 8 and P2 (interleave2.cu)
+                (interleave.cu) at P = 1, 2, 4, 8, through `make` and once
+                more reading the SM of each block (P5: 32 blocks of 32; P6:
+                one cluster of 8 blocks of 128), and P2 (interleave2.cu)
                 A-D at P = 1 and 8, 64 steps, equal to their plain versions
-                on the card bit for bit, tiles and sink; P1 (smem_walk.cu)
+                on the card bit for bit, tiles and sink; P5 / P6 print each
+                launch's grid, block, cluster and warps on the busiest SM
+                with its kernel time; P1 (smem_walk.cu)
                 in blocks of
                 128 and 1024 threads at every staged prefix (0 and the
                 ends of BFS levels 0-5) on two
@@ -129,7 +133,7 @@ printing one line or more:
                 the plain walk bit for bit.  Each probe is run once through
                 its public function with the launch counts set to 0 before
                 and read after; one timing line each (wrapper, kernel,
-                plain and bound, for the one-block probes also the bound of
+                plain and bound, for the one-block P2 also the bound of
                 the one SM that runs the block; P1 per prefix beside K1
                 lane, with blocks per SM).  The probes' launch counts are
                 set to 0 before phase 3 and read before phase 20: the
@@ -296,11 +300,14 @@ DESIGNS = {
         "n_staged records (whole BFS levels) copied to dynamic shared memory "
         "at block start, the rest and the leaf rows from global memory"),
     "interleave": (
-        "one block of 1024 threads, one per tile element; P chains unrolled "
-        "in registers, each step a broadcast record load and a slab pair"),
+        "32 blocks of one warp, one thread per tile element, each block "
+        "recomputing the table-only chain index; P chains unrolled in "
+        "registers, each step a broadcast record load and a slab pair"),
     "interleave_any": (
-        "the interleave kernel with the tile's any(hit) in the next index: "
-        "one __syncthreads_or per chain and step"),
+        "the tile over one cluster of 8 blocks of 128 threads; the tile's "
+        "any(hit) in the next index: a warp vote, each warp's word sent by st.async into every "
+        "block's shared memory, one mbarrier wait a step for all P chains, "
+        "double-buffered by step parity"),
     "interleave2": (
         "one block of 1024 threads; P chains unrolled, lhit / rhit by "
         "__syncthreads_or, the chains' stacks in shared memory (every thread "
@@ -1760,9 +1767,9 @@ def probe_bound(P, iters, stats, mt8_calls=0, tri_rows=0):
     tiles and the sink out and the distinct records (64 B) and leaf rows
     (512 B) read, over the HBM rate, against each element's slab pair and
     add at every step of every chain, and FLOPS_PER_TRI_TEST for each slot
-    of each mt8 call, over the unfused float32 rate.  One block does it, so
-    the bound is a small share of the card by construction; sm_bound_ms
-    gives the bound of the one SM that runs the block."""
+    of each mt8 call, over the unfused float32 rate.  A chain of dependent
+    steps on one tile is a small share of the card by construction (P2's
+    one block runs on one SM: sm_bound_ms gives that SM's bound)."""
     tile = 1024
     nbytes = (P * 6 * 4 * tile + P * 4 * tile + P * 12
               + 64 * stats["records"] + 512 * tri_rows)
@@ -1879,6 +1886,24 @@ def phase_probes(device, main_path_launches):
                 "version")
         compared["interleave2"].append((got, acc))
         stats[v, P] = st
+    # P5 and P6 once more, reading the SM each block ran on, against the
+    # same plain versions (these launches come after the counts were read).
+    warps = {}
+    for (name, P) in out5:
+        anyi = name == "interleave_any"
+        acc, ref_sink = p5.interleave_reference(
+            tables5[0], p5.pack_rays(P, rays5[P]), PROBE_ITERS, anyi)
+        sh = p5.shape(P, anyi)
+        sm = torch.full((p5.blocks(sh),), -1, dtype=torch.int32,
+                        device=device)
+        got, sink = p5.launch(tables5[0], p5.pack_rays(P, rays5[P]),
+                              PROBE_ITERS, anyi, sh, sm)
+        require(torch.equal(got, acc) and torch.equal(sink, ref_sink)
+                and bool((sm >= 0).all()),
+                f"[{tag}] {name} P={P} T={sh[0]} S={sh[1]} differs from its "
+                "plain version or left a block's SM unread")
+        compared[name].append((got, acc))
+        warps[name, P] = p5.warps_per_sm(sm, sh[0])
     walk_stats = {}
     for k, (o, d) in enumerate(bounce):
         md = torch.zeros((o.shape[0],), dtype=torch.float32, device=device)
@@ -1896,7 +1921,9 @@ def phase_probes(device, main_path_launches):
     errs = {name: max_abs_err(pairs) for name, pairs in compared.items()}
     attrs = {(b, s): p1.attributes(s, b) for b in p1.BLOCKS
              for s in prefixes}
-    print(f"[{tag}] exact: P5 and P6 at P {p5.PS}, P2 A-D at P {p2.PS}, "
+    print(f"[{tag}] exact: P5 and P6 at P {p5.PS} (through make, and "
+          f"reading each block's SM; (T, S): P5 {p5.SHAPE[False]}, P6 "
+          f"{p5.SHAPE[True]}), P2 A-D at P {p2.PS}, "
           f"{PROBE_ITERS} steps, tiles and sink; "
           f"P1 in blocks of {p1.BLOCKS} at n_staged {prefixes} (level "
           f"starts {p1.level_starts(accel)[:8]}) on {len(bounce)} x "
@@ -1918,7 +1945,7 @@ def phase_probes(device, main_path_launches):
              "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1],
              "max_abs_err": errs[name], "config": label}
         one_sm = ""
-        if name != "smem_walk":
+        if name == "interleave2":
             m["bound_sm_ms"] = sm_bound_ms(bound_ms_by)
             one_sm = "; one block" + (
                 "" if m["bound_sm_ms"] is None else
@@ -1938,9 +1965,18 @@ def phase_probes(device, main_path_launches):
     for name in ("interleave", "interleave_any"):
         anyi = name == "interleave_any"
         P = max(p5.PS)
-        per_p = {f"kernel_ms_P{q}": statistics.median(probes.launch_ms(
-            lambda n, q=q: p5.launch(n, packed5[q], PROBE_ITERS, anyi),
-            [(t,) for t in tables5], n=8)) for q in p5.PS}
+        sh = p5.SHAPE[anyi]
+        per_p = {"shape": list(sh)}
+        for q in p5.PS:
+            ms = statistics.median(probes.launch_ms(
+                lambda n, q=q: p5.launch(n, packed5[q], PROBE_ITERS, anyi),
+                [(t,) for t in tables5], n=8))
+            per_p[f"kernel_ms_P{q}"] = ms
+            print(f"[{tag}] {name} P={q}: grid {p5.blocks(sh)}, block "
+                  f"{sh[0]}, cluster {sh[1]} ({warps[name, q]} warps on "
+                  f"the busiest SM): kernel {ms:.4f} ms, "
+                  f"{ms * 1e6 / PROBE_ITERS / q:.1f} ns a step and chain",
+                  flush=True)
         timed(name, f"P={P}, {PROBE_ITERS} steps",
               lambda n: chains[name, P][0](n, *rays5[P]),
               lambda n: p5.launch(n, packed5[P], PROBE_ITERS, anyi),

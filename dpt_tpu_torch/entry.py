@@ -59,9 +59,20 @@ def dryrun_config(n_ranks: int) -> RenderConfig:
     )
 
 
+def dryrun_capacity(cfg: RenderConfig, n_ranks: int) -> tuple:
+    """(C, R): the static capacity of one rank's rays and their count R,
+    as `__graft_entry__.py` computes them (pixels / ranks, one sample)."""
+    from dpt_tpu_torch.render.integrator import capacity
+
+    R = cfg.n_pixels // n_ranks
+    return capacity(R, cfg.compact_frac), R
+
+
 def dryrun_rank(device="cuda") -> dict:
     """One rank's part of the dry run, in a process group that is up (or
-    alone): one tile-sharded tape step (forward recording the tape per
+    alone): first the check that compaction is live per rank (0 < C <
+    rays per rank, so the chunked-overflow branch runs), then one
+    tile-sharded tape step (forward recording the tape per
     rank, backward over the playback, loss and gradients all-reduced) with
     an SGD update at lr 1e-2, whose loss must be finite; then the sharded
     forward, gathered, must equal the single render of the whole frame
@@ -80,6 +91,10 @@ def dryrun_rank(device="cuda") -> dict:
 
     _, size = world()
     cfg = dryrun_config(size)
+    C, R = dryrun_capacity(cfg, size)
+    if not 0 < C < R:
+        raise AssertionError(f"compaction not live per rank: C={C}, "
+                             f"R/rank={R}")
     scene = procedural_scene(n_tris_target=300, device=device)
     camera = OrbitCamera().camera(device)
     accel = build_accel(scene, cfg)

@@ -191,7 +191,8 @@ def load_probe_library() -> ctypes.CDLL:
     for name, args in (
             ("dpt_quad_traverse_smem", [p, p, p, p, i, i, i, p, p, p]),
             ("dpt_quad_traverse_smem_attrs", [i, i, ip, ip, ip]),
-            ("dpt_probe_interleave", [p, p, i, i, i, p, p, p]),
+            ("dpt_probe_interleave", [p, p, i, i, i, i, i, i, p, p, p, p]),
+            ("dpt_probe_interleave_attrs", [i, i, i, i, i, ip, ip]),
             ("dpt_probe_interleave2", [p, p, p, i, i, i, p, p, p]),
             ("dpt_probe_gather_axis1", tile_iters),
             ("dpt_probe_gather_axis0", tile_iters),

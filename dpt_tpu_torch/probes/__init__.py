@@ -9,8 +9,9 @@ card (`python -m dpt_tpu_torch.probes.<name>`):
   - `r3_smem_proto` (P1): K1's nearest walk with the top levels of its
     record table staged in shared memory (csrc/probes/smem_walk.cu).
   - `probe_interleave` (P5) and `probe_interleave_any` (P6): P pointer-chase
-    chains interleaved in one block; P6 adds the tile's any(hit) into the
-    next index (csrc/probes/interleave.cu).
+    chains interleaved in each thread, the tile spread over 32 one-warp
+    blocks (P5) or one thread-block cluster (P6, which adds the tile's
+    any(hit) into the next index; csrc/probes/interleave.cu).
   - `probe_interleave2` (P2): walk-step variants A-D with a stack per chain
     (csrc/probes/interleave2.cu).
   - `probe_gather` (P3): a lane gather within the rows of an [8, 128] tile

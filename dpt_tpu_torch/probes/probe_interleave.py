@@ -1,4 +1,4 @@
-"""P5: P independent pointer-chase chains interleaved in one block.
+"""P5: P independent pointer-chase chains over one ray tile.
 
 Counterpart of `scripts/probe_interleave.py` (`make(P)`, pallas_call :94):
 does running more walks at once hide the latency of each step's dependent
@@ -12,22 +12,27 @@ and ltf >= 0 ? ltn : rtn), next record floor_mod(trunc(rec[12]) + rid,
 `make(P, iters)` returns `go(nodes, *rays_flat)` with the TPU probe's
 arguments (P x 6 ray tiles ox oy oz dx dy dz), giving (a tuple of P [8, 128]
 accumulators, sink [P, 3] int32: 0, the chain's final record, 0).  CUDA
-tensors launch csrc/probes/interleave.cu (one block of 1024 threads, the P
-chains unrolled in each thread; P in {1, 2, 4, 8}); CPU tensors run
-`interleave_reference`, the same steps as torch ops (bit for bit on the
-card: -fmad=false).  P6 (`probe_interleave_any`) is the same with the
-tile's any(hit) added into the next index.
+tensors launch csrc/probes/interleave.cu in its kernel's shape `SHAPE`
+(P5: 32 blocks of one warp; P6: one cluster of 8 blocks of 128 threads;
+P in {1, 2, 4, 8}); CPU tensors run `interleave_reference`, the same steps as torch ops
+(bit for bit on the card: -fmad=false).  P6 (`probe_interleave_any`) is
+the same with the tile's any(hit) added into the next index.
 
     python -m dpt_tpu_torch.probes.probe_interleave
 
-times the kernel on the card at P = 1, 2, 4, 8 (the TPU probe's lines:
-ms, ns per step, ns per step and chain, and beside them the least ns a
-step and chain can take on the one SM that runs the block) and prints the
+times both kernels on the card (`survey`): at P = 1, 2, 4, 8, ns per step
+and per step and chain, warps per SM (read from the SM each block ran on),
+registers; then the chain's latency floor beside the
+card's operations bound, the chains per SM at which ns per step and chain
+stops falling, and P6's cost a step over P5.  Prints the
 card's name and power limit and one JSON line.
+scripts/torch_interleave_shapes.py adds the one-block kernel of an older
+tree to the same turns.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import sys
@@ -41,8 +46,15 @@ from dpt_tpu_torch.kernels.quad import _slab
 ITERS = 512
 N_ROWS = 1024  # node table rows
 N_RECORDS = N_ROWS * 8  # 16-float records
+TILE = 8 * 128  # elements of a ray tile
 # The chain counts the kernel is built for (the TPU probe's main).
 PS = (1, 2, 4, 8)
+# The shape (threads per block T, blocks per cluster S) each kernel is
+# built for, by whether the any is in the index, timed on the H100: P5
+# spreads the tile over 1024 / T blocks without a cluster (T = 64-256 were
+# slower at every P), P6 over one cluster of S blocks of 1024 / S threads
+# (S = 2 was slower; S = 4 and 16 were at most 3% faster, at one P each).
+SHAPE = {False: (32, 1), True: (128, 8)}
 TIMED_LAUNCHES = 20
 # Float operations of one step of one chain for one tile element: two slab
 # tests of 25 (6 sub, 6 mul, 10 min / max, 3 compares) and the add.
@@ -52,12 +64,32 @@ OPS_PER_STEP = 51
 F32_OPS_PER_S = 33.5e12
 
 
-def sm_bound_ns():
-    """Least ns of one step of one chain: the tile's OPS_PER_STEP x 1024
-    operations at one SM's share of the card's float32 rate (one block runs
-    on one SM)."""
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    return 1024 * OPS_PER_STEP / (F32_OPS_PER_S / n_sm) * 1e9
+def shape(P, any_in_index):
+    """The (T, S) the wrapper launches for P chains: its kernel's SHAPE."""
+    if P not in PS:
+        raise ValueError(f"the kernel is built for P in {PS}, got {P}")
+    return SHAPE[bool(any_in_index)]
+
+
+def blocks(shape_):
+    """Blocks of a shape: T x blocks covers the tile once."""
+    return TILE // shape_[0]
+
+
+def check_shape(P, any_in_index, shape_):
+    """Raise unless the kernel is built for P chains in `shape_`."""
+    if P not in PS:
+        raise ValueError(f"the kernel is built for P in {PS}, got {P}")
+    if tuple(shape_) != SHAPE[bool(any_in_index)]:
+        raise ValueError(
+            f"{'P6' if any_in_index else 'P5'} is built for the shape (T, "
+            f"S) {SHAPE[bool(any_in_index)]}, got {tuple(shape_)}")
+
+
+def ops_bound_ms(P, iters):
+    """The card's operations bound of one launch: OPS_PER_STEP for every
+    tile element, step and chain at F32_OPS_PER_S."""
+    return TILE * iters * P * OPS_PER_STEP / F32_OPS_PER_S * 1e3
 
 
 def probe_inv(d):
@@ -78,9 +110,9 @@ def pack_rays(P, rays_flat):
     return torch.stack(rays_flat).reshape(P, 6, 8 * 128)
 
 
-def check_table(name, x, shape, device):
-    if x.dtype != torch.float32 or tuple(x.shape) != shape:
-        raise ValueError(f"{name} must be float32 {list(shape)}, got "
+def check_table(name, x, shape_, device):
+    if x.dtype != torch.float32 or tuple(x.shape) != shape_:
+        raise ValueError(f"{name} must be float32 {list(shape_)}, got "
                          f"{x.dtype} {list(x.shape)}")
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, the rays on {device}")
@@ -124,14 +156,17 @@ def interleave_reference(nodes, rays, iters, any_in_index=False,
     return acc, torch.stack([zero, rid, zero], dim=1).to(torch.int32)
 
 
-def launch(nodes, rays, iters, any_in_index=False):
-    """One kernel launch on the current stream: (acc [P, 1024], sink [P,
-    3] int32).  Raises on a failed build or launch."""
+def launch(nodes, rays, iters, any_in_index=False, shape_=None,
+           sm_of_block=None):
+    """One kernel launch on the current stream in `shape_` (T, S) (default:
+    `shape`'s): (acc [P, 1024], sink [P, 3] int32).  `sm_of_block` (int32
+    [blocks], optional) gets the SM each block ran on.  Raises on a refused
+    shape, a failed build or launch."""
     from dpt_tpu_torch.kernels.build import check_launch, load_probe_library
 
     P = rays.shape[0]
-    if P not in PS:
-        raise ValueError(f"the kernel is built for P in {PS}, got {P}")
+    shape_ = shape(P, any_in_index) if shape_ is None else tuple(shape_)
+    check_shape(P, any_in_index, shape_)
     nodes = nodes.contiguous()
     if nodes.data_ptr() % 16:
         raise ValueError("nodes must be 16-byte aligned")
@@ -139,14 +174,33 @@ def launch(nodes, rays, iters, any_in_index=False):
                       device=rays.device)
     sink = torch.empty((P, 3), dtype=torch.int32, device=rays.device)
     lib = load_probe_library()
+    threads, cluster = shape_
     err = lib.dpt_probe_interleave(
         nodes.data_ptr(), rays.contiguous().data_ptr(), P, iters,
-        int(any_in_index), out.data_ptr(), sink.data_ptr(),
+        int(any_in_index), threads, cluster, blocks(shape_), out.data_ptr(),
+        sink.data_ptr(), None if sm_of_block is None else
+        sm_of_block.data_ptr(),
         torch.cuda.current_stream(rays.device).cuda_stream)
     name = "interleave_any" if any_in_index else "interleave"
     check_launch(lib, name, err)
     probes.launch_counts[name] += 1
     return out, sink
+
+
+def attributes(P, any_in_index):
+    """Registers and local bytes per thread of the kernel of P chains."""
+    from dpt_tpu_torch.kernels.build import load_probe_library
+
+    shape_ = shape(P, any_in_index)
+    lib = load_probe_library()
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.dpt_probe_interleave_attrs(
+        P, int(any_in_index), shape_[0], shape_[1], blocks(shape_),
+        ctypes.byref(regs), ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError(f"interleave attributes at P={P} {shape_}: "
+                           f"cudaError {err}")
+    return {"num_regs": regs.value, "local_bytes": local.value}
 
 
 def make_go(P, iters, any_in_index):
@@ -187,9 +241,28 @@ def ray_tiles(rng, P):
             for _ in range(P * 6)]
 
 
-def time_chains(any_in_index, label):
-    """The probe's timing on the card at every P of PS: median device ms of
-    TIMED_LAUNCHES launches over the 4 node tables in turn."""
+def warps_per_sm(sm_of_block, threads):
+    """The most warps any SM held in a launch, from the SM of each
+    block."""
+    counts = torch.bincount(sm_of_block.long().cpu())
+    return int(counts.max()) * threads // 32
+
+
+def _stop_point(rows, tol=0.1):
+    """The first P of PS after which ns per step and chain falls by less
+    than `tol` (the chains at which the latency is hidden), else the last."""
+    for a, b in zip(PS, PS[1:]):
+        if rows[b] > (1 - tol) * rows[a]:
+            return a
+    return PS[-1]
+
+
+def survey(others=(), iters=ITERS, rounds=2):
+    """Time P5 and P6 on the card at every P of PS in their SHAPE (and each
+    of `others`: (label, any_in_index, launch(nodes, rays, iters) -> (acc,
+    sink), warps per SM)), after checking each equal to
+    `interleave_reference` bit for bit; print a line each and the summary,
+    and return the JSON dict."""
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     card = probes.card_line()
@@ -197,27 +270,88 @@ def time_chains(any_in_index, label):
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     tables = [torch.as_tensor(t, device=dev) for t in node_tables(rng)]
+    packed = {P: pack_rays(P, [torch.as_tensor(r, device=dev)
+                               for r in ray_tiles(rng, P)]) for P in PS}
+    configs = []  # (kernel, label, P, launch, warps per SM, attributes)
+    for anyi in (False, True):
+        kernel = "P6" if anyi else "P5"
+        sh = SHAPE[anyi]
+        for P in PS:
+            sm = torch.empty(blocks(sh), dtype=torch.int32, device=dev)
+            launch(tables[0], packed[P], 1, anyi, sh, sm)
+            configs.append((kernel, f"T={sh[0]} S={sh[1]}", P,
+                            lambda n, P=P, anyi=anyi: launch(
+                                n, packed[P], iters, anyi),
+                            warps_per_sm(sm, sh[0]), attributes(P, anyi)))
+            for label, oany, call, warps in others:
+                if oany == anyi:
+                    configs.append((kernel, label, P,
+                                    lambda n, P=P, call=call: call(
+                                        n, packed[P], iters), warps, {}))
+    refs = {(anyi, P): interleave_reference(tables[0], packed[P], iters,
+                                            anyi)
+            for anyi in (False, True) for P in PS}
+    for kernel, label, P, call, _, _ in configs:
+        acc, sink = call(tables[0])
+        ref = refs[kernel == "P6", P]
+        if not (torch.equal(acc, ref[0]) and torch.equal(sink, ref[1])):
+            raise AssertionError(f"{kernel} {label} P={P} differs from "
+                                 "interleave_reference")
+    ms = {k: [] for k in range(len(configs))}
+    for r in range(rounds):
+        order = range(len(configs)) if r % 2 == 0 else reversed(
+            range(len(configs)))
+        for k in order:
+            ms[k] += probes.launch_ms(configs[k][3], [(t,) for t in tables],
+                                      n=TIMED_LAUNCHES)
     rows = []
-    bound = sm_bound_ns()
-    for P in PS:
-        packed = pack_rays(P, [torch.as_tensor(r, device=dev)
-                               for r in ray_tiles(rng, P)])
-        ms = statistics.median(probes.launch_ms(
-            lambda n: launch(n, packed, ITERS, any_in_index),
-            [(t,) for t in tables], n=TIMED_LAUNCHES))
-        per = ms * 1e-3 / ITERS
-        print(f"P={P}:  {ms:8.3f} ms  {per * 1e9:8.1f} ns/iter  "
-              f"{per / P * 1e9:8.1f} ns/iter/chain  (SM bound {bound:.1f})",
-              flush=True)
-        rows.append({"P": P, "ms": ms, "ns_per_iter": per * 1e9,
-                     "ns_per_iter_chain": per / P * 1e9,
-                     "sm_bound_ns_per_iter_chain": bound})
-    print(json.dumps({"probe": label, "device": torch.cuda.get_device_name(0),
-                      "card": card, "iters": ITERS, "rows": rows}))
+    for k, (kernel, label, P, _, warps, attrs) in enumerate(configs):
+        m = statistics.median(ms[k])
+        row = {"kernel": kernel, "shape": label, "P": P, "ms": m,
+               "ns_per_step": m * 1e6 / iters,
+               "ns_per_step_chain": m * 1e6 / iters / P,
+               "warps_per_sm": warps, **attrs}
+        rows.append(row)
+        print(f"{kernel} {label:>14} P={P}: {m:8.4f} ms {row['ns_per_step']:8.1f}"
+              f" ns/step {row['ns_per_step_chain']:8.1f} ns/step/chain, "
+              f"{warps} warps/SM"
+              + "".join(f", {k} {v}" for k, v in attrs.items()), flush=True)
+    by = {(r["kernel"], r["shape"], r["P"]): r for r in rows}
+    label = {kernel: f"T={SHAPE[anyi][0]} S={SHAPE[anyi][1]}"
+             for kernel, anyi in (("P5", False), ("P6", True))}
+    summary = {"iters": iters, "shape": {k: list(SHAPE[k == "P6"])
+                                         for k in label}}
+    for kernel in label:
+        # chains in flight per SM at which ns per step and chain stops
+        # falling (P chains a thread, warps per SM as read)
+        summary[f"{kernel}_stop_chains"] = _stop_point(
+            {P: by[kernel, label[kernel], P]["ns_per_step_chain"]
+             for P in PS})
+    floor = by["P5", label["P5"], 1]
+    summary["latency_floor_ms"] = floor["ms"]
+    summary["latency_floor_ns_per_step"] = floor["ns_per_step"]
+    summary["ops_bound_ms_P1"] = ops_bound_ms(1, iters)
+    # P6's cost per step over P5: each warp of either runs the same 32
+    # elements' P chains, and P6 adds the any to each step
+    summary["P6_extra_ns_per_step"] = {
+        P: by["P6", label["P6"], P]["ns_per_step"]
+        - by["P5", label["P5"], P]["ns_per_step"] for P in PS}
+    print(f"latency floor (P5, P=1, one warp a block): {iters} steps x "
+          f"{floor['ns_per_step']:.1f} ns = {floor['ms']:.4f} ms, against "
+          f"the card's operations bound {summary['ops_bound_ms_P1']:.6f} ms",
+          flush=True)
+    for k in ("shape", "P5_stop_chains", "P6_stop_chains",
+              "P6_extra_ns_per_step"):
+        print(f"{k}: {json.dumps(summary[k])}", flush=True)
+    result = {"probe": "probe_interleave", "device":
+              torch.cuda.get_device_name(0), "card": card, "rows": rows,
+              "summary": summary}
+    print(json.dumps(result))
+    return result
 
 
 def main():
-    time_chains(False, "probe_interleave")
+    survey()
 
 
 if __name__ == "__main__":

@@ -6,7 +6,9 @@ pallas_call :97): the same P chains of `iters` steps as P5
 + any(hit), 8192), where any(hit) is the OR over the whole [8, 128] tile,
 like the real walk's any(lhit) descent decision: the reduction sits on the
 chain of dependent loads.  The loop still runs `iters` steps.  On the card
-the any is a barrier of the block (`__syncthreads_or`, csrc/probes/
+the tile is spread over one thread-block cluster of 8 blocks, and the any
+is a warp vote, a word per warp stored into every block's shared memory
+(st.async) and one mbarrier wait a step for all P chains (csrc/probes/
 interleave.cu); the chain index stays the same in every thread.
 
 `make(P, iters)` returns `go(nodes, *rays_flat)` -> (P x [8, 128] f32, sink
@@ -15,12 +17,13 @@ interleave.cu); the chain index stays the same in every thread.
 
     python -m dpt_tpu_torch.probes.probe_interleave_any
 
-times it on the card at P = 1, 2, 4, 8, as P5's main does.
+is P5's main: it times both kernels in turns (P6's cost over P5 is one of
+its answers).
 """
 
 from __future__ import annotations
 
-from dpt_tpu_torch.probes.probe_interleave import ITERS, make_go, time_chains
+from dpt_tpu_torch.probes.probe_interleave import ITERS, make_go, survey
 
 
 def make(P, iters=ITERS):
@@ -29,7 +32,7 @@ def make(P, iters=ITERS):
 
 
 def main():
-    time_chains(True, "probe_interleave_any")
+    survey()
 
 
 if __name__ == "__main__":

@@ -21,7 +21,9 @@ patched in for the module.  Each JAX probe runs once, at P = 2, and its
 chains are independent, so chain 0 is the probe at P = 1 on the first six
 ray tiles: the port at P = 1 is held against it, and at P = 2 against
 both chains.  Tests marked `cuda` compare each kernel with its plain
-version on the card, bit for bit; they skip without one.
+version on the card, bit for bit (P5 and P6 in the shape the library
+takes); they skip without one.  The CPU also checks P5 / P6's shapes and
+the wrapper's refusal of a shape or P the kernel does not take.
 """
 
 import functools
@@ -139,6 +141,42 @@ def test_interleave_matches_jax(jax_probe, probe, P):
     # the sink holds each chain's final record
     assert sink[:, 0].eq(0).all() and sink[:, 2].eq(0).all()
     assert ((sink[:, 1] >= 0) & (sink[:, 1] < tp5.N_RECORDS)).all()
+
+
+@pytest.mark.parametrize("P", tp5.PS)
+@pytest.mark.parametrize("any_in_index", [False, True])
+def test_interleave_shape_rule(any_in_index, P):
+    """The shape the wrapper launches is built, covers the 1,024 tile
+    elements once, and is one cluster of 2-8 blocks (the portable sizes)
+    for P6, none for P5."""
+    T, S = tp5.shape(P, any_in_index)
+    assert (T, S) == tp5.SHAPE[any_in_index]
+    assert T % 32 == 0 and T * tp5.blocks((T, S)) == tp5.TILE
+    if any_in_index:
+        assert 2 <= S <= 8 and S == tp5.blocks((T, S))
+    else:
+        assert S == 1 and tp5.blocks((T, S)) > 1
+
+
+@pytest.mark.parametrize("any_in_index, P, shape", [
+    (False, 1, (1024, 1)),  # the one-block kernel left the library
+    (False, 2, (64, 2)),  # P5 takes no cluster
+    (True, 1, (1024, 1)),  # P6 needs a cluster of at least 2 blocks
+    (True, 8, (512, 1)),  # one block of a 2-block tile: not the tile
+    (True, 4, (32, 32)),  # a cluster of 32 blocks
+    (True, 1, (256, 4)),  # P6's clusters of 4 and 16 left the library
+    (True, 8, (64, 16)),
+    (False, 4, (64, 1)),  # P5 is built for blocks of one warp
+    (False, 3, (32, 1)),  # P is 1, 2, 4 or 8
+])
+def test_interleave_refuses_shape(any_in_index, P, shape):
+    nodes, rays = _interleave_inputs(P)
+    packed = tp5.pack_rays(P, [torch.as_tensor(r) for r in rays])
+    with pytest.raises(ValueError):
+        tp5.launch(torch.as_tensor(nodes), packed, 4, any_in_index, shape)
+    if P not in tp5.PS:
+        with pytest.raises(ValueError):
+            tp5.launch(torch.as_tensor(nodes), packed, 4, any_in_index)
 
 
 def _mt8_ok(trow, o, d):
@@ -376,6 +414,49 @@ def test_interleave_kernel_exact(cuda, probe, P):
                                    probe == "P6")
     assert torch.equal(torch.stack(tiles).reshape(P, -1), ref[0])
     assert torch.equal(sink, ref[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", tp5.PS)
+@pytest.mark.parametrize("any_in_index", [False, True])
+def test_interleave_shape_exact(cuda, any_in_index, P):
+    """The shape the library takes equals the plain version bit for bit
+    at every P, with each block on an SM of the card."""
+    nodes, rays = _interleave_inputs(P, seed=3)
+    n = torch.as_tensor(nodes, device=cuda)
+    packed = tp5.pack_rays(P, [torch.as_tensor(r, device=cuda)
+                               for r in rays])
+    shape = tp5.SHAPE[any_in_index]
+    sm = torch.full((tp5.blocks(shape),), -1, dtype=torch.int32, device=cuda)
+    acc, sink = tp5.launch(n, packed, 64, any_in_index, shape, sm)
+    ref = tp5.interleave_reference(n, packed, 64, any_in_index)
+    assert torch.equal(acc, ref[0]) and torch.equal(sink, ref[1])
+    props = torch.cuda.get_device_properties(cuda)
+    assert bool(((sm >= 0) & (sm < props.multi_processor_count)).all())
+
+
+@pytest.mark.cuda
+def test_interleave_c_side_refuses_grid(cuda):
+    """The C launch refuses a grid that does not cover the tile once and a
+    cluster that is not the whole grid: cudaErrorInvalidValue (1)."""
+    from dpt_tpu_torch.kernels.build import load_probe_library
+
+    lib = load_probe_library()
+    nodes, rays = _interleave_inputs(1)
+    n = torch.as_tensor(nodes, device=cuda)
+    packed = tp5.pack_rays(1, [torch.as_tensor(r, device=cuda)
+                               for r in rays])
+    out = torch.empty((1, tp5.TILE), device=cuda)
+    sink = torch.empty((1, 3), dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for any_in_index, threads, cluster, blocks in (
+            (0, 32, 1, 31), (0, 32, 2, 32), (1, 128, 4, 8),
+            (1, 128, 8, 16), (0, 1024, 1, 1), (1, 1024, 1, 1),
+            (1, 256, 4, 4), (1, 64, 16, 16), (0, 64, 1, 16)):
+        err = lib.dpt_probe_interleave(
+            n.data_ptr(), packed.data_ptr(), 1, 4, any_in_index, threads,
+            cluster, blocks, out.data_ptr(), sink.data_ptr(), None, stream)
+        assert err == 1, (any_in_index, threads, cluster, blocks)
 
 
 @pytest.mark.cuda
