@@ -122,10 +122,14 @@ printing one line or more:
                 (interleave.cu) at P = 1, 2, 4, 8, through `make` and once
                 more reading the SM of each block (P5: 32 blocks of 32; P6:
                 one cluster of 8 blocks of 128), and P2 (interleave2.cu)
-                A-D at P = 1 and 8, 64 steps, equal to their plain versions
-                on the card bit for bit, tiles and sink; P5 / P6 print each
-                launch's grid, block, cluster and warps on the busiest SM
-                with its kernel time; P1 (smem_walk.cu)
+                A-D at P = 1 and 8 through `make` and once more in its
+                one shape reading the SM of each block (one cluster of 8
+                blocks of 128), 64 steps, equal to their plain
+                versions on the card bit for bit, tiles and sink; P5 / P6
+                print each launch's grid, block, cluster and warps on the
+                busiest SM with its kernel time, P2 the same for each
+                variant and P, what B, C and D add over A and B, and the
+                latency floor; P1 (smem_walk.cu)
                 in blocks of
                 128 and 1024 threads at every staged prefix (0 and the
                 ends of BFS levels 0-5) on two
@@ -133,23 +137,26 @@ printing one line or more:
                 the plain walk bit for bit.  Each probe is run once through
                 its public function with the launch counts set to 0 before
                 and read after; one timing line each (wrapper, kernel,
-                plain and bound, for the one-block P2 also the bound of
-                the one SM that runs the block; P1 per prefix beside K1
-                lane, with blocks per SM).  The probes' launch counts are
+                plain and bound; P1 per prefix beside K1 lane, with blocks
+                per SM).  The probes' launch counts are
                 set to 0 before phase 3 and read before phase 20: the
                 render, optimize and walk phases may launch no probe.
  21. primitives — the primitive probes (the same library): P3
                 (gather.cu), P4 (crossbar.cu, B at K = 1, 4, 12), P7 and P8
                 (features.cu), each launched once through its public
-                function at the TPU scripts' inputs (64 steps for the
-                loops; the launch counts set to 0 before and read after)
-                and equal to its plain version bit for bit; the TPU
-                scripts' own checks of P7 and P8 (P8 at i = 0, 127, 128,
-                200, 511); then one timing line each at the scripts' steps
+                function at the TPU scripts' inputs and steps (the launch
+                counts set to 0 before and read after) and equal to its
+                plain version bit for bit; the TPU scripts' own checks of
+                P7 and P8 (P8 at i = 0, 127, 128, 200, 511); the card's
+                clocks a dependent operation, read by a bare chain of
+                multiply-adds in one warp (equal to its plain version bit
+                for bit), and P4-e's first warp alone on one SM with its
+                own clocks an operation; then one timing line each
                 (wrapper, kernel, plain, the library call where one
-                computes the same function, the bound, and for the loops
-                ns a step beside the bound of the one SM that runs the
-                block).
+                computes the same function, the bound, for the loops ns a
+                step beside the bound of one SM, and for P4-e, spread over
+                32 one-warp blocks, its chain's latency bound at the
+                card's clocks, its own beside them).
  22. bench    — `dpt_tpu_torch.bench.main` in this process at full width:
                 the flagship default (1024², 65,024 triangles, 4
                 iterations), `--grad --iters 2` (tape), `--grad
@@ -309,10 +316,13 @@ DESIGNS = {
         "block's shared memory, one mbarrier wait a step for all P chains, "
         "double-buffered by step parity"),
     "interleave2": (
-        "one block of 1024 threads; P chains unrolled, lhit / rhit by "
-        "__syncthreads_or, the chains' stacks in shared memory (every thread "
-        "writes the same word); a sink [P, 3] of final sp, top and mt8 ok "
-        "count"),
+        "the tile over one cluster of 8 blocks of 128 threads; P chains "
+        "unrolled, lhit / rhit as one word a warp and step sent by st.async "
+        "into every block's shared memory, one mbarrier wait a step for all "
+        "P chains, double-buffered by step parity; each warp's copy of the "
+        "stacks in shared memory; A's and D's work issued while the words "
+        "travel; a sink [P, 3] of final sp, top and the mt8 ok count summed "
+        "into rank 0 through distributed shared memory"),
     **dict.fromkeys(("gather_axis1", "crossbar_sublane", "crossbar_fused"), (
         "one block of 1024 threads, one per tile element; the tile (and C's "
         "lane table) in shared memory, index and sum in registers")),
@@ -327,8 +337,9 @@ DESIGNS = {
         "the row starts staged in shared memory 1,024 at a time, 8 steps' "
         "loads in flight (unrolled by 8)"),
     "crossbar_math": (
-        "one block of 1024 threads, v in a register, 141 dependent "
-        "operations a step (-fmad=false)"),
+        "32 blocks of one warp, one thread per tile element, v in a "
+        "register, 141 dependent operations a step (-fmad=false): the "
+        "chain's latency binds, not an SM's issue"),
     **dict.fromkeys(("scalar_load", "scalar_extract", "scalar_dyn_lane",
                      "dyn_sublane_row"), (
         "one block of 128 threads, one per output lane; the device-side index "
@@ -1768,8 +1779,7 @@ def probe_bound(P, iters, stats, mt8_calls=0, tri_rows=0):
     (512 B) read, over the HBM rate, against each element's slab pair and
     add at every step of every chain, and FLOPS_PER_TRI_TEST for each slot
     of each mt8 call, over the unfused float32 rate.  A chain of dependent
-    steps on one tile is a small share of the card by construction (P2's
-    one block runs on one SM: sm_bound_ms gives that SM's bound)."""
+    steps on one tile is a small share of the card by construction."""
     tile = 1024
     nbytes = (P * 6 * 4 * tile + P * 4 * tile + P * 12
               + 64 * stats["records"] + 512 * tri_rows)
@@ -1779,16 +1789,6 @@ def probe_bound(P, iters, stats, mt8_calls=0, tri_rows=0):
     t_ops = flops / PEAK_F32_UNFUSED_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
-
-
-def sm_bound_ms(bound_ms_by):
-    """The bound of a one-block probe on the one SM that runs its block:
-    the card's operations bound times the card's SMs (the bytes bound does
-    not scale so: one SM's share of HBM is not fixed)."""
-    ms, by = bound_ms_by
-    if by != "operations":
-        return None
-    return ms * torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def max_abs_err(pairs):
@@ -1886,22 +1886,32 @@ def phase_probes(device, main_path_launches):
                 "version")
         compared["interleave2"].append((got, acc))
         stats[v, P] = st
-    # P5 and P6 once more, reading the SM each block ran on, against the
-    # same plain versions (these launches come after the counts were read).
+    # P5, P6 and P2 once more, reading the SM each block ran on, against
+    # the same plain versions (these launches come after the counts were
+    # read); v is P2's variant.
     warps = {}
-    for (name, P) in out5:
-        anyi = name == "interleave_any"
-        acc, ref_sink = p5.interleave_reference(
-            tables5[0], p5.pack_rays(P, rays5[P]), PROBE_ITERS, anyi)
-        sh = p5.shape(P, anyi)
-        sm = torch.full((p5.blocks(sh),), -1, dtype=torch.int32,
-                        device=device)
-        got, sink = p5.launch(tables5[0], p5.pack_rays(P, rays5[P]),
-                              PROBE_ITERS, anyi, sh, sm)
+    for name, P, v in ([(name, P, None) for name, P in out5]
+                       + [("interleave2", P, v) for v, P in out2]):
+        if v is None:
+            anyi = name == "interleave_any"
+            sh, rays = p5.shape(P, anyi), p5.pack_rays(P, rays5[P])
+            acc, ref_sink = p5.interleave_reference(tables5[0], rays,
+                                                    PROBE_ITERS, anyi)
+            sm = torch.full((p5.blocks(sh),), -1, dtype=torch.int32,
+                            device=device)
+            got, sink = p5.launch(tables5[0], rays, PROBE_ITERS, anyi, sh,
+                                  sm)
+        else:
+            sh, rays = p2.SHAPE, p5.pack_rays(P, rays2[P])
+            acc, ref_sink = p2.interleave2_reference(*sets2[0], rays, v,
+                                                     PROBE_ITERS)
+            sm = torch.full((p2.BLOCKS,), -1, dtype=torch.int32,
+                            device=device)
+            got, sink = p2.launch(*sets2[0], rays, v, PROBE_ITERS, sm)
         require(torch.equal(got, acc) and torch.equal(sink, ref_sink)
                 and bool((sm >= 0).all()),
-                f"[{tag}] {name} P={P} T={sh[0]} S={sh[1]} differs from its "
-                "plain version or left a block's SM unread")
+                f"[{tag}] {name} {v or ''} P={P} T={sh[0]} S={sh[1]} differs "
+                "from its plain version or left a block's SM unread")
         compared[name].append((got, acc))
         warps[name, P] = p5.warps_per_sm(sm, sh[0])
     walk_stats = {}
@@ -1923,8 +1933,8 @@ def phase_probes(device, main_path_launches):
              for s in prefixes}
     print(f"[{tag}] exact: P5 and P6 at P {p5.PS} (through make, and "
           f"reading each block's SM; (T, S): P5 {p5.SHAPE[False]}, P6 "
-          f"{p5.SHAPE[True]}), P2 A-D at P {p2.PS}, "
-          f"{PROBE_ITERS} steps, tiles and sink; "
+          f"{p5.SHAPE[True]}), P2 A-D at P {p2.PS} (the same; (T, S) "
+          f"{p2.SHAPE}), {PROBE_ITERS} steps, tiles and sink; "
           f"P1 in blocks of {p1.BLOCKS} at n_staged {prefixes} (level "
           f"starts {p1.level_starts(accel)[:8]}) on {len(bounce)} x "
           f"{BOUNCE_RAYS} rays = K1 lane = plain walk; registers/local "
@@ -1944,18 +1954,11 @@ def phase_probes(device, main_path_launches):
              "plain_ms": median_ms(plain, inputs[:2]),
              "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1],
              "max_abs_err": errs[name], "config": label}
-        one_sm = ""
-        if name == "interleave2":
-            m["bound_sm_ms"] = sm_bound_ms(bound_ms_by)
-            one_sm = "; one block" + (
-                "" if m["bound_sm_ms"] is None else
-                f", on its SM {m['bound_sm_ms']:.6f} ms, "
-                f"{100 * m['bound_sm_ms'] / kms:.3g}% of the kernel")
         m.update(extra)
         print(f"[{tag}] {name} {label}: {m['ms']:.4f} ms (kernel "
               f"{kms:.4f}, plain {m['plain_ms']:.3f}, bound "
               f"{m['bound_ms']:.6f} by {m['bound_by']}, "
-              f"{100 * m['bound_ms'] / kms:.3g}% of the kernel{one_sm})"
+              f"{100 * m['bound_ms'] / kms:.3g}% of the kernel)"
               + "".join(f", {k} {v}" for k, v in extra.items()),
               flush=True)
         entries[name] = m
@@ -1991,6 +1994,22 @@ def phase_probes(device, main_path_launches):
                                                   PROBE_ITERS),
                  sets2, n=8))
              for v in p2.VARIANTS for q in p2.PS}
+    per_v["shape"] = list(p2.SHAPE)
+    for q in p2.PS:
+        ns = {v: per_v[f"kernel_ms_{v}_P{q}"] * 1e6 / PROBE_ITERS
+              for v in p2.VARIANTS}
+        print(f"[{tag}] interleave2 P={q}: grid {p2.BLOCKS}, block "
+              f"{p2.SHAPE[0]}, cluster {p2.SHAPE[1]} "
+              f"({warps['interleave2', q]} warps on "
+              "the busiest SM): ns a step and chain "
+              + ", ".join(f"{v} {ns[v] / q:.1f}" for v in p2.VARIANTS)
+              + f"; a step, B - A {ns['B'] - ns['A']:.1f}, C - B "
+              f"{ns['C'] - ns['B']:.1f}, D - B {ns['D'] - ns['B']:.1f}",
+              flush=True)
+    per_v["latency_floor_ms"] = per_v["kernel_ms_A_P1"]
+    print(f"[{tag}] interleave2 latency floor (A, P=1): {PROBE_ITERS} steps "
+          f"x {per_v['kernel_ms_A_P1'] * 1e6 / PROBE_ITERS:.1f} ns = "
+          f"{per_v['kernel_ms_A_P1']:.4f} ms", flush=True)
     timed("interleave2", f"D, P={P}, {PROBE_ITERS} steps",
           lambda n, t: steps["D", P](n, t, *rays2[P]),
           lambda n, t: p2.launch(n, t, packed2[P], "D", PROBE_ITERS),
@@ -2119,6 +2138,22 @@ def phase_primitives(device):
           "their plain versions; the TPU probes' P7 and P8 checks hold; "
           f"launches {launches}; max_abs_err {errs}", flush=True)
 
+    # The card's clocks a dependent operation, read by a bare chain apart
+    # from E's code, for E's latency bound; E's first warp alone on one SM
+    # beside it (both after the counts were read).
+    cycles, ends = p4.op_cycles(a4["x"])
+    require(torch.equal(ends.cpu(), p4.op_chain_reference(a4["x"].cpu())),
+            f"[{tag}] the bare chain differs from its plain version")
+    own, first = p4.chain_cycles(a4["x"])
+    require(torch.equal(first, outs["crossbar_math"].reshape(-1)[:32]),
+            f"[{tag}] crossbar_math's first warp alone differs from the "
+            "tile's")
+    print(f"[{tag}] the card: {cycles:.4f} clocks a dependent operation (a "
+          f"bare chain of {p4.OP_CHAIN_STEPS} x {p4.OP_CHAIN_PAIRS} "
+          "multiply-adds, one warp); crossbar_math one warp alone on one "
+          f"SM, {p4.ITERS} steps x {p4.CHAIN_OPS} dependent operations: "
+          f"{own:.4f} clocks an operation", flush=True)
+
     # Timing.
     library = library_calls(a4, device)
     for name, fn in library.items():  # the same function (sums reordered)
@@ -2127,7 +2162,7 @@ def phase_primitives(device):
         require(torch.allclose(got, ref, rtol=1e-5, atol=1e-3),
                 f"[{tag}] the library call of {name} computes another "
                 "function")
-    timed = probes.time_launches(full, n=10)
+    timed = probes.time_launches(full, n=10, cycles_per_op=cycles)
     entries = {}
     for name, ln in full.items():
         m = timed[name]
@@ -2145,13 +2180,24 @@ def phase_primitives(device):
             e["ns_per_step"] = m["ns_per_step"]
             e["bound_sm_ms"] = m["sm_bound_ns_per_step"] * ln.steps * 1e-6
             e["bound_sm_ns_per_step"] = m["sm_bound_ns_per_step"]
+        if "latency_bound_ms" in m:
+            e["latency_bound_ms"] = m["latency_bound_ms"]
+            e["cycles_per_op"] = m["cycles_per_op"]
+            e["own_cycles_per_op"] = own
+            e["bound_share"] = m["share"]
         print(f"[{tag}] {name} ({ln.label}): {e['ms']:.4f} ms (kernel "
               f"{e['kernel_ms']:.4f}, plain {e['plain_ms']:.3f}, library "
               f"{e['library_ms']}, bound {e['bound_ms']:.6f} by "
               f"{e['bound_by']}"
               + (f"; {ln.steps} steps, {e['ns_per_step']:.1f} ns a step, "
                  f"its SM's bound {e['bound_sm_ns_per_step']:.1f}"
-                 if ln.steps > 1 else "") + ")", flush=True)
+                 if ln.steps > 1 else "")
+              + (f"; the chain's latency bound {e['latency_bound_ms']:.4f} "
+                 f"ms at the card's {e['cycles_per_op']:.4f} clocks an "
+                 f"operation (its own chain {own:.4f}), "
+                 f"{100 * e['bound_share']:.3g}% of the kernel against the "
+                 "larger bound" if "latency_bound_ms" in e else "") + ")",
+              flush=True)
         if key == "crossbar_lanes":  # one entry, K = 12's numbers
             first = entries.setdefault(key, {})
             first.update(e)

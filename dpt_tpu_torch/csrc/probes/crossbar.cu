@@ -1,5 +1,5 @@
 // P4 on Hopper: the per-lane lookup primitives of scripts/probe_crossbar.py,
-// each a loop over one [8, 128] tile in one block.
+// each a loop over one [8, 128] tile: A-D in one block, E over 32 SMs.
 //
 // Replaces the five Pallas kernels of scripts/probe_crossbar.py, run by
 // `run_kernel` :30 (pallas_call :33) or `go_d` :109 (pallas_call :110),
@@ -18,7 +18,8 @@
 // P4-d's row block starts where JAX's `pl.ds(rows[k] * 8, 8)` does
 // (`dyn_start`).
 //
-// Design: one block of 1024 threads, one thread per tile element.  A-C look
+// Design: A-D in one block of 1024 threads, one thread per tile element;
+// E in 32 blocks of one warp (below).  A-C look
 // across four warps' lanes or across rows, beyond a warp shuffle, so x
 // (and C's lane table) live in shared memory.  B keeps its K tiles x + q in
 // shared memory (K x 4 KB, dynamic), so its K lookups a step are K loads
@@ -36,11 +37,18 @@
 // float literals (1.0001f, 0.5f) keep each multiply and add rounded apart,
 // as the plain version's; XLA contracts E's chain, so E is held to the JAX
 // probe within a rounding, and to the plain version bit for bit.  What
-// bounds them: one SM runs the block.  A-C need one or two shared-memory
-// words per lookup per element (32 words a clock per SM) and two integer
-// operations for each index (64 a clock per SM); D 4 KB a step from L2;
-// E 141 float operations a step per element (128 a clock per SM): about
-// 1,128 clocks a step.
+// bounds them: one SM runs the block of A-D.  A-C need one or two
+// shared-memory words per lookup per element (32 words a clock per SM) and
+// two integer operations for each index (64 a clock per SM); D 4 KB a step
+// from L2.  E in one block (the first port) was bound by its SM's issue
+// of 1024 x 141 float operations a step (128 a clock: about 1,128 clocks a
+// step); spread as 32 blocks of one warp, one warp an SM, no SM's issue
+// binds and the chain's latency does: 141 dependent operations of ~4
+// clocks a step (probes/__init__.py latency_bound_ms).  The clocks a
+// dependent operation of that bound are the card's, read apart from E's
+// code by a bare chain of multiplies and adds (op_chain_kernel,
+// dpt_probe_crossbar_op_cycles); E's own clocks an operation
+// (dpt_probe_crossbar_math_cycles) are printed beside them.
 
 #include "probe_common.cuh"
 
@@ -53,6 +61,8 @@ constexpr int kRows = 8;
 constexpr int kUnroll = 8;     // P4-d's steps in flight
 constexpr int kRowChunk = 1024;  // P4-d's rows staged at a time
 constexpr int kMathOps = 70;   // P4-e's multiply-adds a step
+constexpr int kMathThreads = 32;  // P4-e's threads a block: one warp
+constexpr int kChainPairs = 512;  // the bare chain's multiply-adds a step
 
 __global__ void __launch_bounds__(kTile) sublane_kernel(
     const float* __restrict__ x, const int* __restrict__ sub, int iters,
@@ -140,10 +150,14 @@ __global__ void __launch_bounds__(kTile) rows_kernel(
   out[e] = acc;
 }
 
-__global__ void __launch_bounds__(kTile) math_kernel(
-    const float* __restrict__ x, int iters, float* __restrict__ out) {
-  const int e = static_cast<int>(threadIdx.x);
+// Element blockIdx.x * 32 + threadIdx.x; with `cycles`, thread 0 writes
+// the SM clocks from before the loop to after its store of out.
+__global__ void __launch_bounds__(kMathThreads) math_kernel(
+    const float* __restrict__ x, int iters, float* __restrict__ out,
+    long long* __restrict__ cycles) {
+  const int e = static_cast<int>(blockIdx.x * kMathThreads + threadIdx.x);
   const float xe = __ldg(x + e);
+  const long long start = clock64();
   float acc = 0.f;
   for (int k = 0; k < iters; ++k) {
     float v = xe + acc;
@@ -152,6 +166,35 @@ __global__ void __launch_bounds__(kTile) math_kernel(
     acc = v;
   }
   out[e] = acc;
+  if (cycles != nullptr && e == 0) {
+    long long end;
+    asm volatile("mov.u64 %0, %%clock64;" : "=l"(end)::"memory");
+    *cycles = end - start;
+  }
+}
+
+// The card's clocks a dependent float operation, apart from E's code: one
+// warp, each lane a chain of `iters` steps of kChainPairs x (multiply,
+// add), E's constants rounded apart, unrolled so that the loop's own
+// instructions are a few in 1,024 (at 64 pairs a step the chain read 4.07
+// clocks an operation, above E's own 4.05).  Lane 0 writes the SM
+// clocks from before the loop to after its store of out.
+__global__ void __launch_bounds__(kMathThreads) op_chain_kernel(
+    const float* __restrict__ x, int iters, float* __restrict__ out,
+    long long* __restrict__ cycles) {
+  const int e = static_cast<int>(threadIdx.x);
+  float v = __ldg(x + e);
+  const long long start = clock64();
+  for (int k = 0; k < iters; ++k) {
+#pragma unroll
+    for (int m = 0; m < kChainPairs; ++m) v = v * 1.0001f + 0.5f;
+  }
+  out[e] = v;
+  if (e == 0) {
+    long long end;
+    asm volatile("mov.u64 %0, %%clock64;" : "=l"(end)::"memory");
+    *cycles = end - start;
+  }
 }
 
 template <int K>
@@ -205,9 +248,31 @@ extern "C" int dpt_probe_crossbar_rows(const float* tab, int n_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// P4-e: the tile's 1024 chains in 32 blocks of one warp.
 extern "C" int dpt_probe_crossbar_math(const float* x, int iters, float* out,
                                        void* stream) {
-  math_kernel<<<1, kTile, 0, static_cast<cudaStream_t>(stream)>>>(x, iters,
-                                                                   out);
+  math_kernel<<<kTile / kMathThreads, kMathThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(x, iters, out, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P4-e's first warp alone (one block, elements 0-31 of out), and the SM
+// clocks its chains took from before the loop to after their store
+// (cycles: one int64).
+extern "C" int dpt_probe_crossbar_math_cycles(const float* x, int iters,
+                                              float* out, long long* cycles,
+                                              void* stream) {
+  math_kernel<<<1, kMathThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, iters, out, cycles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bare chain (op_chain_kernel) in one warp: out f32 [32], the chains'
+// ends; cycles one int64.
+extern "C" int dpt_probe_crossbar_op_cycles(const float* x, int iters,
+                                            float* out, long long* cycles,
+                                            void* stream) {
+  op_chain_kernel<<<1, kMathThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, iters, out, cycles);
   return static_cast<int>(cudaGetLastError());
 }

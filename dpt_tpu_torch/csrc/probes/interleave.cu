@@ -60,65 +60,13 @@ namespace {
 
 using dpt::probe::kRecords;
 using dpt::probe::kTile;
+using dpt::probe::kWarps;
+using dpt::probe::mbar_expect_step;
+using dpt::probe::mbar_init;
+using dpt::probe::mbar_wait;
+using dpt::probe::send_word;
 
 constexpr unsigned kFull = 0xffffffffu;
-// Warps over the tile, in every shape: one P6 slot each.
-constexpr int kWarps = kTile / 32;
-// Bytes each block receives a step: the 32 warps' words.
-constexpr uint32_t kStepBytes = 4 * kWarps;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// The one local arrival of the next phase of `bar`, expecting kStepBytes.
-__device__ __forceinline__ void mbar_expect_step(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_addr(bar)),
-               "r"(kStepBytes)
-               : "memory");
-}
-
-// Waits until the phase of `bar` with this parity has completed.  A word
-// that never lands is a fault, not a hang: the wait traps after about 10 s
-// (2e10 cycles), which the launch's caller sees as an error.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const long long start = clock64();
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (!done && clock64() - start > 20000000000LL) __trap();
-  } while (!done);
-}
-
-// Stores v into block `rank`'s copy of *slot (st.async), completing 4 bytes
-// of the transaction of its copy of *bar.
-__device__ __forceinline__ void send_word(unsigned* slot, uint64_t* bar,
-                                          int rank, unsigned v) {
-  uint32_t rslot, rbar;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(rslot)
-               : "r"(smem_addr(slot)), "r"(rank));
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(rbar)
-               : "r"(smem_addr(bar)), "r"(rank));
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, "
-      "[%2];" ::"r"(rslot),
-      "r"(v), "r"(rbar)
-      : "memory");
-}
 
 template <int P, bool kAny, int T>
 __global__ void __launch_bounds__(T) interleave_kernel(

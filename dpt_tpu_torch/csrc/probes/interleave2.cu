@@ -1,5 +1,6 @@
-// P2 on Hopper: the walk-step variants A-D, P chains interleaved in one
-// block, each with a stack of 32 indices shared by the whole tile.
+// P2 on Hopper: the walk-step variants A-D, P chains interleaved in each
+// thread, each with a stack of 32 indices shared by the whole tile, the
+// tile spread over a thread-block cluster.
 //
 // Replaces scripts/attic/probe_interleave2.py::make(P, variant)
 // (pallas_call :160; `mt8` :33).  Step of chain p, for every element of
@@ -21,47 +22,72 @@
 // as the TPU probe does.
 //
 // The sink: the kernel also writes, per chain, the final sp, the final top
-// of the stack (stack[max(sp - 1, 0)]; A: stack[0]) and the block's count
+// of the stack (stack[max(sp - 1, 0)]; A: stack[0]) and the tile's count
 // of mt8 slot tests with ok true.  It keeps nvcc from deleting work whose
 // output is otherwise constant, and the plain version computes the same.
 //
-// Design: one block of 1024 threads computes the tile, one thread per
-// element, P chains unrolled in registers.  lhit and rhit are block-wide
-// ORs (__syncthreads_or), so rid, sp and the stack are the same in every
-// thread.  The stacks are in shared memory: every thread writes the same
-// value to the same word, and no extra barrier is needed, because the
-// writes follow the step's last barrier and the next step's reads precede
-// its first.  (A per-thread stack in local memory, a runtime-indexed array
-// as K1's, was timed against it on the H100 and was slower at P = 8, where
-// it spills: PERF.md.)  One block runs on one SM, so one SM's issue rate
-// for the step's float work and mt8's bounds it from below, with each
-// step's dependent load and its barriers; against the whole card its bound
-// is a tiny share by construction.
+// What bounds it: a chain is a sequence of dependent steps (the record
+// load, the slab pair, the tile-wide ORs, the stack), so its time is steps
+// x the latency of one step, far above the card's operations bound.  The
+// first port ran the tile as one block of 1024 threads on one SM, the ORs
+// by __syncthreads_or: that SM's issue of 32 warps' work bound it (D at P
+// = 8 read 54% of its one SM's operations bound), not the step's latency.
+// Spread over a cluster, A and B take the exchange's latency a step (A
+// within 9% of P6), while C and D wait on each warp's own mt8: one warp a
+// scheduler runs ~88 instructions a slot test in ~225 clocks, each slot's
+// IEEE reciprocal a call site in its own convergence region (on the H100:
+// PERF.md; grouping the 8 slots' loads, determinants and reciprocals in
+// the source did not overlap them).
+//
+// Design: P6's (interleave.cu).  The tile is spread over one cluster of 8
+// blocks of 128 threads, one thread per element, the P chains unrolled in
+// registers.  Each step every warp ORs its hits into one word
+// (bit p: chain p's lhit, bit 8 + p: its rhit; A needs the low bits only)
+// and sends it with st.async into slot w (its warp of the tile) of every
+// block; each block waits on its own mbarrier for the step's 128 bytes,
+// once for all P chains, then ORs its 32 slots (probe_common.cuh).  The
+// record, the chain index, and so rid, sp and the stack are the same in
+// every thread of the cluster, so each keeps its own copy: one per warp,
+// in shared memory (a runtime-indexed stack in registers goes to local
+// memory, which was slower at P = 8).  Every lane of a warp writes the
+// same word; the warp's next read of its copy comes after the __syncwarp
+// that ends the step, and its next write after the next step's OR of the
+// warp's hits, which every lane reaches only after its reads: no warp
+// waits on another for its stack.  A and D's work does not depend on the
+// ORs, so it is issued while the words travel; C's branch on rec[14] > 0
+// && lhit is taken or not by the whole cluster, after the wait, and its
+// leaf row is read by broadcast __ldg.  The count of ok slot tests is
+// summed by each warp and added into rank 0's shared word through
+// distributed shared memory (integer sums: exact in any order).
 // Built with -fmad=false: the plain version (probes/probe_interleave2.py)
 // gives the same values bit for bit.
 
+#include <cooperative_groups.h>
+
+#include <cstdint>
+
 #include "probe_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using dpt::probe::kRecords;
 using dpt::probe::kTile;
+using dpt::probe::kWarps;
+using dpt::probe::mbar_expect_step;
+using dpt::probe::mbar_init;
+using dpt::probe::mbar_wait;
+using dpt::probe::send_word;
 
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kStackWords = 32;
 constexpr int kTriRows = 512;
-
-// Adds `v` of every thread into *total (a shared counter set to 0 before a
-// barrier) and returns the sum after the block's barrier.
-__device__ __forceinline__ int block_sum(int v, int* total) {
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) atomicAdd(total, v);
-  __syncthreads();
-  return *total;
-}
+// The bit of chain p's rhit in a warp's word (its lhit is bit p).
+constexpr int kRhitBit = 8;
 
 // The probe's Möller–Trumbore over the 8 slots of leaf row `tr` (8 x 16
-// floats: v0 at 0-2, e1 at 3-5, e2 at 6-8); counts each ok slot in *n_ok.
+// floats: v0 at 0-2, e1 at 3-5, e2 at 6-8); counts each ok slot in n_ok.
 __device__ __forceinline__ float mt8(const float4* __restrict__ tr,
                                      const dpt::Ray& r, float best,
                                      int& n_ok) {
@@ -92,15 +118,32 @@ __device__ __forceinline__ float mt8(const float4* __restrict__ tr,
   return best;
 }
 
+// The threads a block: one cluster of 8 blocks of 128 covers the tile,
+// P6's shape (a cluster of 16 blocks of 64 was within 6% of it at every
+// variant and P on the H100).
+constexpr int kThreads = 128;
+constexpr int kClusterBlocks = kTile / kThreads;
+
 // V: 0 = A, 1 = B, 2 = C, 3 = D.
 template <int P, int V>
-__global__ void __launch_bounds__(kTile) interleave2_kernel(
+__global__ void __launch_bounds__(kThreads) interleave2_kernel(
     const float4* __restrict__ nodes, const float4* __restrict__ tris,
     const float* __restrict__ rays, int iters, float* __restrict__ out,
-    int* __restrict__ sink) {
-  __shared__ int stack[P][kStackWords];
+    int* __restrict__ sink, int* __restrict__ sm_of_block) {
+  static_assert(P <= kRhitBit, "a warp's word holds 8 chains' two hits");
+  // slots[parity][w]: warp w's word of the steps of that parity;
+  // bar[parity] completes when all 32 words of the step landed.
+  __shared__ unsigned slots[2][kWarps];
+  __shared__ __align__(8) uint64_t bar[2];
+  // Each warp's copy of the P stacks.
+  __shared__ int stacks[kThreads / 32][P][kStackWords];
+  // Rank 0's: the cluster's count of ok slot tests per chain.
   __shared__ int n_ok_total[P];
-  const int i = static_cast<int>(threadIdx.x);
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int x = static_cast<int>(threadIdx.x);
+  const int i = static_cast<int>(blockIdx.x) * kThreads + x;
+  const int lane = x & 31;
+  int(*stack)[kStackWords] = stacks[x >> 5];
   dpt::Ray ray[P];
   float acc[P];
   int sp[P], n_ok[P];
@@ -110,75 +153,137 @@ __global__ void __launch_bounds__(kTile) interleave2_kernel(
     acc[p] = 0.f;
     sp[p] = 1;
     n_ok[p] = 0;
-    stack[p][0] = 7 * p + 1;
-    if (i == 0) n_ok_total[p] = 0;
+    if (lane == 0) stack[p][0] = 7 * p + 1;
   }
-  __syncthreads();
+  if (x < P) n_ok_total[x] = 0;
+  if (x == 0) {
+    mbar_init(&bar[0]);
+    mbar_init(&bar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect_step(&bar[0]);
+    mbar_expect_step(&bar[1]);
+  }
+  // Every block's mbarriers, counters and stacks are set before the first
+  // word is sent.
+  cluster.sync();
   for (int it = 0; it < iters; ++it) {
+    int rid[P], lptr[P], rptr[P];
+    bool leaf[P];
+    float pick[P];
+    unsigned bits = 0;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      const int spm = max(sp[p] - 1, 0);
-      const int rid = stack[p][V == 0 ? 0 : spm];
+      rid[p] = stack[p][V == 0 ? 0 : max(sp[p] - 1, 0)];
       float f[16];
-      dpt::probe::load_record(nodes, rid, f);
+      dpt::probe::load_record(nodes, rid[p], f);
       float ltn, ltf, rtn, rtf;
       dpt::probe::slab_pair(f, ray[p], ltn, ltf, rtn, rtf);
-      const bool lhit = dpt::probe::block_any(ltn <= ltf && ltf >= 0.f);
-      const int lptr =
-          dpt::probe::floor_mod(static_cast<int>(f[12]) + rid, kRecords);
-      const int rptr =
-          dpt::probe::floor_mod(static_cast<int>(f[13]) + rid, kRecords);
+      bits |= ltn <= ltf && ltf >= 0.f ? 1u << p : 0u;
+      if constexpr (V != 0) {
+        bits |= rtn <= rtf && rtf >= 0.f ? 1u << (kRhitBit + p) : 0u;
+      }
+      pick[p] = ltn <= ltf ? ltn : rtn;
+      lptr[p] = dpt::probe::floor_mod(static_cast<int>(f[12]) + rid[p],
+                                      kRecords);
+      rptr[p] = dpt::probe::floor_mod(static_cast<int>(f[13]) + rid[p],
+                                      kRecords);
+      leaf[p] = f[14] > 0.f;
+    }
+    bits = __reduce_or_sync(kFull, bits);
+    const int par = it & 1;
+    if (lane < kClusterBlocks) {
+      send_word(&slots[par][i >> 5], &bar[par], lane, bits);
+    }
+    // Work that needs no OR, while the words travel.
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
       if constexpr (V == 0) {
-        acc[p] = acc[p] + (ltn <= ltf ? ltn : rtn);
-        stack[p][0] = lhit ? lptr : rptr;
+        acc[p] = acc[p] + pick[p];
+      } else if constexpr (V == 3) {
+        acc[p] = mt8(tris + 32 * (rid[p] % kTriRows), ray[p], acc[p],
+                     n_ok[p]);
+      }
+    }
+    mbar_wait(&bar[par], static_cast<uint32_t>((it >> 1) & 1));
+    const unsigned any = __reduce_or_sync(kFull, slots[par][lane]);
+    // The next phase of this parity: step it + 2.
+    if (x == 0) mbar_expect_step(&bar[par]);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const bool lhit = (any >> p) & 1u;
+      if constexpr (V == 0) {
+        stack[p][0] = lhit ? lptr[p] : rptr[p];
       } else {
-        const bool rhit = dpt::probe::block_any(rtn <= rtf && rtf >= 0.f);
-        const float4* tr = tris + 32 * (rid % kTriRows);
+        const bool rhit = (any >> (kRhitBit + p)) & 1u;
         if constexpr (V == 2) {
-          if (f[14] > 0.f && lhit) acc[p] = mt8(tr, ray[p], acc[p], n_ok[p]);
-        } else if constexpr (V == 3) {
-          acc[p] = mt8(tr, ray[p], acc[p], n_ok[p]);
+          if (leaf[p] && lhit) {
+            acc[p] = mt8(tris + 32 * (rid[p] % kTriRows), ray[p], acc[p],
+                         n_ok[p]);
+          }
         }
+        const int spm = max(sp[p] - 1, 0);
         if (lhit && rhit) {
-          stack[p][spm] = lptr;
-          stack[p][spm + 1] = rptr;
+          stack[p][spm] = lptr[p];
+          stack[p][spm + 1] = rptr[p];
         } else if (lhit != rhit) {
-          stack[p][spm] = lhit ? lptr : rptr;
+          stack[p][spm] = lhit ? lptr[p] : rptr[p];
         }
         sp[p] = max(min(spm + (lhit ? 1 : 0) + (rhit ? 1 : 0), 30), 1);
       }
     }
+    __syncwarp();
   }
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     out[p * kTile + i] = acc[p];
-    const int top = stack[p][V == 0 ? 0 : max(sp[p] - 1, 0)];
-    const int total = block_sum(n_ok[p], &n_ok_total[p]);
-    if (i == 0) {
-      sink[3 * p + 0] = sp[p];
-      sink[3 * p + 1] = top;
-      sink[3 * p + 2] = total;
+    const int warp_ok = __reduce_add_sync(kFull, n_ok[p]);
+    if (lane == 0) {
+      atomicAdd(cluster.map_shared_rank(&n_ok_total[p], 0), warp_ok);
     }
+  }
+  // No block exits while a word may still be on its way to it, and rank 0
+  // holds every block's count.
+  cluster.sync();
+  if (cluster.block_rank() == 0 && x == 0) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      sink[3 * p + 0] = sp[p];
+      sink[3 * p + 1] = stack[p][V == 0 ? 0 : max(sp[p] - 1, 0)];
+      sink[3 * p + 2] = n_ok_total[p];
+    }
+  }
+  if (sm_of_block != nullptr && x == 0) {
+    unsigned sm;
+    asm("mov.u32 %0, %%smid;" : "=r"(sm));
+    sm_of_block[blockIdx.x] = static_cast<int>(sm);
   }
 }
 
-template <int P, int V>
-int launch_v(const float4* n4, const float4* t4, const float* rays,
-             int iters, float* out, int* sink, cudaStream_t s) {
-  interleave2_kernel<P, V><<<1, kTile, 0, s>>>(n4, t4, rays, iters, out,
-                                               sink);
-  return static_cast<int>(cudaGetLastError());
-}
+using KernelFn = void (*)(const float4*, const float4*, const float*, int,
+                          float*, int*, int*);
 
 template <int P>
-int launch_p(const float4* n4, const float4* t4, const float* rays,
-             int variant, int iters, float* out, int* sink, cudaStream_t s) {
+KernelFn kernel_of_v(int variant) {
   switch (variant) {
-    case 0: return launch_v<P, 0>(n4, t4, rays, iters, out, sink, s);
-    case 1: return launch_v<P, 1>(n4, t4, rays, iters, out, sink, s);
-    case 2: return launch_v<P, 2>(n4, t4, rays, iters, out, sink, s);
-    case 3: return launch_v<P, 3>(n4, t4, rays, iters, out, sink, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 0: return interleave2_kernel<P, 0>;
+    case 1: return interleave2_kernel<P, 1>;
+    case 2: return interleave2_kernel<P, 2>;
+    case 3: return interleave2_kernel<P, 3>;
+    default: return nullptr;
+  }
+}
+
+// The kernel of a shape the library takes, or null: P chains (1 or 8),
+// variant 0-3, and one cluster of 8 blocks of 128 threads.
+KernelFn checked_kernel(int P, int variant, int threads, int cluster,
+                        int blocks) {
+  if (threads != kThreads || blocks != kClusterBlocks || cluster != blocks) {
+    return nullptr;
+  }
+  switch (P) {
+    case 1: return kernel_of_v<1>(variant);
+    case 8: return kernel_of_v<8>(variant);
+    default: return nullptr;
   }
 }
 
@@ -186,22 +291,52 @@ int launch_p(const float4* n4, const float4* t4, const float* rays,
 
 // One launch on `stream`: nodes [8192 x 16] f32 and tris [512 x 128] f32
 // (both 16-byte aligned), rays [P][6][1024] f32, out [P][1024] f32, sink
-// [P][3] int32.  `variant` 0-3 is A-D.  P is 1 or 8 (the TPU probe's);
-// another P or variant returns cudaErrorInvalidValue.  Returns
-// cudaGetLastError() after the launch.
+// [P][3] int32, and, unless null, sm_of_block [blocks] int32 (the SM each
+// block ran on).  `variant` 0-3 is A-D.  The shape: one cluster of
+// `cluster` = `blocks` = 8 blocks of `threads` = 128.  A P (1 or 8),
+// variant, shape or grid the library does not take returns
+// cudaErrorInvalidValue; else the launch's error (a refused cluster
+// included), then cudaGetLastError().
 extern "C" int dpt_probe_interleave2(const float* nodes, const float* tris,
                                      const float* rays, int P, int variant,
-                                     int iters, float* out, int* sink,
-                                     void* stream) {
-  const float4* n4 = reinterpret_cast<const float4*>(nodes);
-  const float4* t4 = reinterpret_cast<const float4*>(tris);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (P) {
-    case 1:
-      return launch_p<1>(n4, t4, rays, variant, iters, out, sink, s);
-    case 8:
-      return launch_p<8>(n4, t4, rays, variant, iters, out, sink, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+                                     int iters, int threads, int cluster,
+                                     int blocks, float* out, int* sink,
+                                     int* sm_of_block, void* stream) {
+  const KernelFn kernel = checked_kernel(P, variant, threads, cluster, blocks);
+  if (kernel == nullptr || iters < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const float4*>(tris), rays, iters, out, sink,
+      sm_of_block);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// Registers and local bytes per thread of the kernel of a shape the
+// library takes (as dpt_probe_interleave2 checks it).
+extern "C" int dpt_probe_interleave2_attrs(int P, int variant, int threads,
+                                           int cluster, int blocks,
+                                           int* num_regs, int* local_bytes) {
+  const KernelFn kernel = checked_kernel(P, variant, threads, cluster, blocks);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(kernel));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *num_regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }

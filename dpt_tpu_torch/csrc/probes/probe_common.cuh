@@ -1,7 +1,9 @@
 // Device helpers shared by the probes (the H100 forms of the TPU probes
 // under scripts/): the interleaved pointer-chase chains P5 / P6
 // (interleave.cu) and the walk-step variants P2 (interleave2.cu), whose
-// step is a dependent record load, a slab pair, and the next index; P1
+// step is a dependent record load, a slab pair, and the next index, and
+// whose tile-wide ORs (P6, P2) are words exchanged over a thread-block
+// cluster by st.async into mbarrier-counted slots; P1
 // (smem_walk.cu) takes K1's helpers from traverse_common.cuh; the primitive
 // probes P3, P4, P7 and P8 (gather.cu, crossbar.cu, features.cu) take the
 // tile shape and JAX's dynamic-slice start.
@@ -10,18 +12,24 @@
 // 8192 records of 16 floats: the TPU probe loads row rid // 8 and rolls
 // record rid % 8 to lanes 0-15 (`pltpu.roll(row, -(rid % 8) * 16)`), which
 // on the card is one load of record rid.  Their rays are the [8, 128] ray
-// tiles, one thread per element, 1024 threads a block.
+// tiles, one thread per element, the tile over one or several blocks.
 #pragma once
+
+#include <cstdint>
 
 #include "../traverse_common.cuh"
 
 namespace dpt {
 namespace probe {
 
-// One block computes one [8, 128] tile, one thread per element.
+// The elements of one [8, 128] tile, one thread each.
 constexpr int kTile = 1024;
 // Records of 16 floats in the node table ([1024, 128] f32).
 constexpr int kRecords = 8192;
+// Warps over the tile, in every shape: one exchange slot each.
+constexpr int kWarps = kTile / 32;
+// Bytes each block of a cluster receives a step: the 32 warps' words.
+constexpr uint32_t kStepBytes = 4 * kWarps;
 
 // Python's (and jnp's) floor mod of an int32: CUDA's % truncates, and
 // trunc(field) + rid may be negative.
@@ -87,9 +95,63 @@ __device__ __forceinline__ void slab_pair(const float (&f)[16], const Ray& r,
   slab(f, 6, r, rtn, rtf);
 }
 
-// jnp.any over the block's tile: a barrier of all kTile threads.
-__device__ __forceinline__ bool block_any(bool pred) {
-  return __syncthreads_or(pred) != 0;
+// The exchange of a tile-wide OR over a cluster (P6, P2): each step every
+// warp sends one word into slot w (its warp of the tile) of every block's
+// shared memory with st.async, which counts the word's 4 bytes into that
+// block's mbarrier; a block waits on its own mbarrier for the step's
+// kStepBytes and ORs its slots.  Slots and mbarriers are double-buffered
+// by step parity.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// The one local arrival of the next phase of `bar`, expecting kStepBytes.
+__device__ __forceinline__ void mbar_expect_step(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(kStepBytes)
+               : "memory");
+}
+
+// Waits until the phase of `bar` with this parity has completed.  A word
+// that never lands is a fault, not a hang: the wait traps after about 10 s
+// (2e10 cycles), which the launch's caller sees as an error.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > 20000000000LL) __trap();
+  } while (!done);
+}
+
+// Stores v into block `rank`'s copy of *slot (st.async), completing 4 bytes
+// of the transaction of its copy of *bar.
+__device__ __forceinline__ void send_word(unsigned* slot, uint64_t* bar,
+                                          int rank, unsigned v) {
+  uint32_t rslot, rbar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(rslot)
+               : "r"(smem_addr(slot)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(rbar)
+               : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, "
+      "[%2];" ::"r"(rslot),
+      "r"(v), "r"(rbar)
+      : "memory");
 }
 
 }  // namespace probe

@@ -193,7 +193,9 @@ def load_probe_library() -> ctypes.CDLL:
             ("dpt_quad_traverse_smem_attrs", [i, i, ip, ip, ip]),
             ("dpt_probe_interleave", [p, p, i, i, i, i, i, i, p, p, p, p]),
             ("dpt_probe_interleave_attrs", [i, i, i, i, i, ip, ip]),
-            ("dpt_probe_interleave2", [p, p, p, i, i, i, p, p, p]),
+            ("dpt_probe_interleave2", [p, p, p, i, i, i, i, i, i, p, p, p,
+                                       p]),
+            ("dpt_probe_interleave2_attrs", [i, i, i, i, i, ip, ip]),
             ("dpt_probe_gather_axis1", tile_iters),
             ("dpt_probe_gather_axis0", tile_iters),
             ("dpt_probe_crossbar_sublane", tile_iters),
@@ -201,6 +203,8 @@ def load_probe_library() -> ctypes.CDLL:
             ("dpt_probe_crossbar_fused", [p, p, p, i, p, p]),
             ("dpt_probe_crossbar_rows", [p, i, p, i, p, p]),
             ("dpt_probe_crossbar_math", [p, i, p, p]),
+            ("dpt_probe_crossbar_math_cycles", [p, i, p, p, p]),
+            ("dpt_probe_crossbar_op_cycles", [p, i, p, p, p]),
             *((f"dpt_probe_{k}", tile_iters) for k in (
                 "scalar_load", "scalar_extract", "dyn_lane_slice",
                 "dyn_roll", "scalar_dyn_lane", "dyn_sublane_row")),

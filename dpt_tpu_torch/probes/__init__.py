@@ -12,15 +12,16 @@ card (`python -m dpt_tpu_torch.probes.<name>`):
     chains interleaved in each thread, the tile spread over 32 one-warp
     blocks (P5) or one thread-block cluster (P6, which adds the tile's
     any(hit) into the next index; csrc/probes/interleave.cu).
-  - `probe_interleave2` (P2): walk-step variants A-D with a stack per chain
-    (csrc/probes/interleave2.cu).
+  - `probe_interleave2` (P2): walk-step variants A-D with a stack per
+    chain, the tile over one cluster as P6's (csrc/probes/interleave2.cu).
   - `probe_gather` (P3): a lane gather within the rows of an [8, 128] tile
     and a row gather within the columns of a [64, 128] one, repeated
     (csrc/probes/gather.cu); `xla_gather_probe` and `chase` are torch
     indexing, as XLA computed them outside any kernel.
   - `probe_crossbar` (P4): a row gather, K lane gathers a step, the two
     fused, row blocks of a 2 MB table, and 70 multiply-adds a step, each
-    over one [8, 128] tile (csrc/probes/crossbar.cu).
+    over one [8, 128] tile (csrc/probes/crossbar.cu; the last over 32
+    one-warp blocks, bound by its chain's latency: `latency_bound_ms`).
   - `probe_pallas` (P7) and `probe_pallas2` (P8): the Mosaic feature checks,
     dynamic row, lane and scalar loads with an index read on the device,
     rolls, a stack in shared memory and integer vector ops
@@ -106,6 +107,10 @@ class Launch(NamedTuple):
     steps: int  # loop steps a launch (1 for a feature check)
     ops: dict  # thread operations a launch, by pipe (see bound_ms)
     nbytes: int  # bytes a launch must move: inputs read, outputs written
+    # Dependent operations a step of each element's chain, where each
+    # element is one chain of dependent steps (see latency_bound_ms); 0
+    # where no chain sets a least time.
+    chain_ops: int = 0
 
 
 def counter(name):
@@ -114,22 +119,36 @@ def counter(name):
     return name.split("_K")[0]
 
 
-def time_launches(launches, n=20):
+def launch_bounds(ln, kernel_ms, cycles_per_op=None):
+    """A launch's bounds beside its kernel time: the card's (`bound_ms`),
+    the one SM's, and for a launch with `chain_ops` the chain's latency
+    bound at `cycles_per_op`, the card's clocks a dependent operation read
+    apart from the kernel (`probe_crossbar.op_cycles`); `share` is the
+    larger bound over the kernel time."""
+    bound, by = bound_ms(ln.nbytes, ln.ops)
+    out = {"kernel_ms": kernel_ms, "steps": ln.steps,
+           "ns_per_step": kernel_ms * 1e6 / ln.steps,
+           "bound_ms": bound, "bound_by": by,
+           "sm_bound_ns_per_step":
+               bound_ms(0, ln.ops, sms=1)[0] * 1e6 / ln.steps}
+    latency = 0.0
+    if ln.chain_ops and cycles_per_op is not None:
+        latency = latency_bound_ms(ln.steps, ln.chain_ops, cycles_per_op)
+        out["latency_bound_ms"] = latency
+        out["cycles_per_op"] = cycles_per_op
+    out["share"] = max(bound, latency) / kernel_ms
+    return out
+
+
+def time_launches(launches, n=20, cycles_per_op=None):
     """Each launch's kernel time on the card (median of `n` launches behind
-    a sleep, `launch_ms`) beside its bounds: name -> dict."""
+    a sleep, `launch_ms`) beside its bounds (`launch_bounds`, the chains'
+    latency at `cycles_per_op`): name -> dict."""
     import statistics
 
-    out = {}
-    for name, ln in launches.items():
-        ms = statistics.median(launch_ms(ln.call, [()], n=n))
-        bound, by = bound_ms(ln.nbytes, ln.ops)
-        out[name] = {
-            "kernel_ms": ms, "steps": ln.steps,
-            "ns_per_step": ms * 1e6 / ln.steps,
-            "bound_ms": bound, "bound_by": by,
-            "sm_bound_ns_per_step":
-                bound_ms(0, ln.ops, sms=1)[0] * 1e6 / ln.steps}
-    return out
+    return {name: launch_bounds(
+        ln, statistics.median(launch_ms(ln.call, [()], n=n)), cycles_per_op)
+        for name, ln in launches.items()}
 
 
 def print_launches(probe, launches, timed, card, **extra):
@@ -145,10 +164,15 @@ def print_launches(probe, launches, timed, card, **extra):
             print(f"{launches[name].label}: {m['kernel_ms'] * 1e3:.2f} us a "
                   f"launch (bound {m['bound_ms'] * 1e3:.5f} us)", flush=True)
             continue
+        bound = (f"the chain's latency bound {m['latency_bound_ms']:.4f} ms "
+                 f"at the card's {m['cycles_per_op']:.4f} clocks an "
+                 f"operation, {100 * m['share']:.3g}% of the kernel; its own "
+                 f"chain {m.get('own_cycles_per_op', float('nan')):.4f}"
+                 if "latency_bound_ms" in m else
+                 f"its SM's bound {m['sm_bound_ns_per_step']:.1f} ns a step")
         print(f"{launches[name].label}: {m['ns_per_step']:9.1f} ns a step "
-              f"({m['kernel_ms']:.4f} ms a launch, {m['steps']} steps; its "
-              f"SM's bound {m['sm_bound_ns_per_step']:.1f} ns a step)",
-              flush=True)
+              f"({m['kernel_ms']:.4f} ms a launch, {m['steps']} steps; "
+              f"{bound})", flush=True)
     print(json.dumps({"probe": probe, "device": torch.cuda.get_device_name(0),
                       "card": card, "rows": timed, **extra}))
 
@@ -167,6 +191,13 @@ def bound_ms(nbytes, ops, sms=SMS):
     t_bytes = nbytes / PEAK_BYTES_PER_S if sms == SMS else 0.0
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations")
+
+
+def latency_bound_ms(steps, chain_ops, cycles_per_op, clock_hz=CLOCK_HZ):
+    """The least time of a chain of `steps` steps of `chain_ops` dependent
+    operations each, `cycles_per_op` clocks apiece at `clock_hz`: no design
+    shortens a dependent chain, whatever the card's operations rate."""
+    return steps * chain_ops * cycles_per_op / clock_hz * 1e3
 
 
 def dyn_start(i, dim, size=1):

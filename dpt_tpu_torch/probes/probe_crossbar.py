@@ -27,8 +27,11 @@ functions, the same steps as torch ops (bit for bit on the card).
     python -m dpt_tpu_torch.probes.probe_crossbar
 
 prints the TPU probe's lines on the card (ns a gather, step or load of each
-kernel beside the bound of the one SM that runs its block), the card's
-name and power limit and one JSON line.
+kernel beside the bound of the one SM that runs its block; E, spread over
+32 one-warp blocks, beside its chain's latency bound at the card's clocks
+a dependent operation, which `op_cycles` reads from a bare chain apart
+from E's code, with E's own clocks an operation from `chain_cycles`
+beside them), the card's name and power limit and one JSON line.
 """
 
 from __future__ import annotations
@@ -48,6 +51,13 @@ ROW_BLOCKS = 511  # rows[k] is drawn from [0, 511)
 KS = (1, 4, 12)
 MATH_OPS = 70
 MUL, ADD = 1.0001, 0.5
+# E's dependent operations a step of each element: the add of x, then 70
+# multiplies and adds.
+CHAIN_OPS = 2 * MATH_OPS + 1
+# The bare chain that reads the card's clocks a dependent operation
+# (`op_cycles`): OP_CHAIN_STEPS steps of OP_CHAIN_PAIRS multiply-adds.
+OP_CHAIN_STEPS = 125
+OP_CHAIN_PAIRS = 512  # crossbar.cu kChainPairs
 TIMED_LAUNCHES = 20
 # Each element's operations a step, as the TPU probe spells them: an index
 # add and floor mod (two int32 operations) for each lookup index, a
@@ -58,7 +68,7 @@ STEP_OPS = {
     "sublane": {"i32": 2, "lds": 1, "f32": 1},
     "fused": {"i32": 4, "lds": 2, "f32": 1},
     "rows": {"f32": 1},
-    "math": {"f32": 2 * MATH_OPS + 1},
+    "math": {"f32": CHAIN_OPS},
 }
 
 
@@ -185,6 +195,59 @@ def vector_ops(x, iters=ITERS):
     return _launch("crossbar_math", x, iters)
 
 
+def chain_cycles(x, iters=ITERS):
+    """(clocks a dependent operation of E takes on the card, the 32
+    elements it computed): E's first warp launched alone (one block of 32
+    threads, one SM), its SM clocks from before the loop to after its store
+    (read by the kernel) over iters x CHAIN_OPS."""
+    from dpt_tpu_torch.kernels.build import check_launch, load_probe_library
+
+    _tiles(iters, x)
+    if not x.is_cuda:
+        raise ValueError("chain_cycles needs a CUDA tensor")
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    cycles = torch.zeros(1, dtype=torch.int64, device=x.device)
+    lib = load_probe_library()
+    err = lib.dpt_probe_crossbar_math_cycles(
+        x.data_ptr(), iters, out.data_ptr(), cycles.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch(lib, "crossbar_math_cycles", err)
+    probes.launch_counts["crossbar_math"] += 1
+    return int(cycles) / (iters * CHAIN_OPS), out.reshape(-1)[:32]
+
+
+def op_chain_reference(x, steps=OP_CHAIN_STEPS):
+    """The bare chain's 32 ends: steps x OP_CHAIN_PAIRS of v = v * MUL +
+    ADD from x's first 32 elements, each operation rounded."""
+    v = x.reshape(-1)[:32]
+    for _ in range(steps * OP_CHAIN_PAIRS):
+        v = v * MUL + ADD
+    return v
+
+
+def op_cycles(x):
+    """(the card's clocks a dependent float operation, the 32 chain ends):
+    one warp (one SM) of bare chains of OP_CHAIN_STEPS x OP_CHAIN_PAIRS
+    multiply-adds from x's first 32 elements, apart from E's code; its SM
+    clocks from before the loop to after its store (read by the kernel)
+    over the chain's operations.  A timing instrument: no launch count."""
+    from dpt_tpu_torch.kernels.build import check_launch, load_probe_library
+
+    _tiles(1, x)
+    if not x.is_cuda:
+        raise ValueError("op_cycles needs a CUDA tensor")
+    x = x.contiguous()
+    out = torch.zeros(32, dtype=torch.float32, device=x.device)
+    cycles = torch.zeros(1, dtype=torch.int64, device=x.device)
+    lib = load_probe_library()
+    err = lib.dpt_probe_crossbar_op_cycles(
+        x.data_ptr(), OP_CHAIN_STEPS, out.data_ptr(), cycles.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch(lib, "crossbar_op_cycles", err)
+    return int(cycles) / (OP_CHAIN_STEPS * OP_CHAIN_PAIRS * 2), out
+
+
 def inputs(rng, iters=ITERS):
     """The TPU probe's inputs, drawn as it draws them (normal floats,
     uniform indices) from a numpy generator: x [8, 128], idx [8, 128] in
@@ -240,7 +303,7 @@ def launches(a, iters=ITERS):
             "e) 70 fused vector ops",
             lambda: vector_ops(x, iters),
             lambda: vector_ops_reference(x, iters),
-            iters, ops(STEP_OPS["math"], iters), 8 * tile),
+            iters, ops(STEP_OPS["math"], iters), 8 * tile, CHAIN_OPS),
     }
 
 
@@ -253,7 +316,17 @@ def main():
     a = {k: torch.as_tensor(v, device=dev)
          for k, v in inputs(np.random.default_rng(0)).items()}
     lns = launches(a)
-    timed = probes.time_launches(lns, TIMED_LAUNCHES)
+    cycles, ends = op_cycles(a["x"])
+    if not torch.equal(ends.cpu(), op_chain_reference(a["x"].cpu())):
+        sys.exit("the bare chain differs from its plain version")
+    own, first = chain_cycles(a["x"])
+    if not torch.equal(first, lns["crossbar_math"].call().reshape(-1)[:32]):
+        sys.exit("e) its first warp alone differs from the whole tile's")
+    print(f"the card: {cycles:.4f} clocks a dependent operation (a bare "
+          f"chain, one warp); e) one warp alone: {own:.4f} clocks an "
+          "operation of its own chain", flush=True)
+    timed = probes.time_launches(lns, TIMED_LAUNCHES, cycles)
+    timed["crossbar_math"]["own_cycles_per_op"] = own
     for K in KS:  # the TPU probe's ns a gather
         m = timed[f"crossbar_lanes_K{K}"]
         m["ns_per_gather"] = m["ns_per_step"] / K

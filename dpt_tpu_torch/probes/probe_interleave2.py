@@ -23,19 +23,28 @@ in the TPU probe and here.  The kernel's sink keeps its work observable:
 `go` returns (P x [8, 128] f32, sink [P, 3] int32: the final sp, the final
 top of the stack, the tile's count of mt8 slot tests with ok true).
 
-CUDA tensors launch csrc/probes/interleave2.cu (one block of 1024 threads,
-P in {1, 8}, the stacks in shared memory); CPU tensors run
-`interleave2_reference`, the same steps as torch ops (bit for bit on the
-card: -fmad=false).
+CUDA tensors launch csrc/probes/interleave2.cu in its one shape `SHAPE`
+(the tile over one cluster of S blocks of T threads, lhit / rhit exchanged
+as one word a warp and step, each warp's copy of the stacks in shared
+memory; P in {1, 8}); CPU tensors run `interleave2_reference`, the same
+steps as torch ops (bit for bit on the card: -fmad=false).
 
     python -m dpt_tpu_torch.probes.probe_interleave2
 
-times A-D at P = 1 and 8 on the card and prints the TPU probe's lines,
-the card's name and power limit, and one JSON line.
+times A-D at P = 1 and 8 on the card (`survey`, each checked equal to the
+plain version bit for bit first), with P6 at the same P and shape: ns a
+step and a step and chain, warps per SM (read from the SM each block ran
+on), registers; then what each feature adds (B - A the stack, C - B the
+leaf branch, D - B the unconditional leaf tests), A - P6, and the latency
+floor (ITERS x A's ns a step at P = 1) beside the operations bound.
+Prints the card's name and power limit and one JSON line.
+scripts/torch_interleave2_shapes.py adds the one-block kernel of an older
+tree to the same turns.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import sys
@@ -45,12 +54,15 @@ import torch
 
 from dpt_tpu_torch import probes
 from dpt_tpu_torch.kernels.quad import _slab
+from dpt_tpu_torch.probes import probe_interleave as p5
 from dpt_tpu_torch.probes.probe_interleave import (
     N_RECORDS,
     N_ROWS,
+    TILE,
     check_table,
     pack_rays,
     tile_rays,
+    warps_per_sm,
 )
 
 ITERS = 512
@@ -59,7 +71,13 @@ STACK_WORDS = 32
 VARIANTS = ("A", "B", "C", "D")
 # The chain counts the kernel is built for (the TPU probe's main).
 PS = (1, 8)
+# The shape (threads per block T, blocks in the one cluster S) the kernel
+# is built for, at every P: P6's (S = 16, T = 64 was within 6% of it at
+# every variant and P on the H100, PERF.md).
+SHAPE = (128, 8)
+BLOCKS = TILE // SHAPE[0]  # T x BLOCKS covers the tile once
 TIMED_LAUNCHES = 20
+ROUNDS = 3  # `survey`'s rounds of TIMED_LAUNCHES each, in turns
 
 
 def mt8(trow, ray, d, best):
@@ -159,17 +177,24 @@ def interleave2_reference(nodes, tris, rays, variant, iters, stats=None):
     return acc, sink
 
 
-def launch(nodes, tris, rays, variant, iters):
-    """One kernel launch on the current stream: (acc [P, 1024], sink [P,
-    3] int32).  Raises on a failed build or launch."""
-    from dpt_tpu_torch.kernels.build import check_launch, load_probe_library
-
-    P = rays.shape[0]
+def check_args(P, variant):
+    """Raise unless the kernel is built for P chains and `variant`."""
     if P not in PS:
         raise ValueError(f"the kernel is built for P in {PS}, got {P}")
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got "
                          f"{variant!r}")
+
+
+def launch(nodes, tris, rays, variant, iters, sm_of_block=None):
+    """One kernel launch on the current stream in SHAPE: (acc [P, 1024],
+    sink [P, 3] int32).  `sm_of_block` (int32 [BLOCKS], optional) gets the
+    SM each block ran on.  Raises on a P or variant the kernel is not built
+    for (before any build), a failed build or launch."""
+    P = rays.shape[0]
+    check_args(P, variant)
+    from dpt_tpu_torch.kernels.build import check_launch, load_probe_library
+
     tables = [x.contiguous() for x in (nodes, tris)]
     if any(x.data_ptr() % 16 for x in tables):
         raise ValueError("nodes and tris must be 16-byte aligned")
@@ -177,14 +202,32 @@ def launch(nodes, tris, rays, variant, iters):
                       device=rays.device)
     sink = torch.empty((P, 3), dtype=torch.int32, device=rays.device)
     lib = load_probe_library()
+    threads, cluster = SHAPE
     err = lib.dpt_probe_interleave2(
         tables[0].data_ptr(), tables[1].data_ptr(),
         rays.contiguous().data_ptr(), P, VARIANTS.index(variant), iters,
-        out.data_ptr(), sink.data_ptr(),
+        threads, cluster, BLOCKS, out.data_ptr(), sink.data_ptr(),
+        None if sm_of_block is None else sm_of_block.data_ptr(),
         torch.cuda.current_stream(rays.device).cuda_stream)
     check_launch(lib, "interleave2", err)
     probes.launch_counts["interleave2"] += 1
     return out, sink
+
+
+def attributes(P, variant):
+    """Registers and local bytes per thread of the kernel of P chains."""
+    from dpt_tpu_torch.kernels.build import load_probe_library
+
+    check_args(P, variant)
+    lib = load_probe_library()
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.dpt_probe_interleave2_attrs(
+        P, VARIANTS.index(variant), SHAPE[0], SHAPE[1], BLOCKS,
+        ctypes.byref(regs), ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError(f"interleave2 attributes at P={P} {variant}: "
+                           f"cudaError {err}")
+    return {"num_regs": regs.value, "local_bytes": local.value}
 
 
 def make(P, variant, iters=ITERS):
@@ -222,7 +265,13 @@ def tables(rng):
     return out
 
 
-def main():
+def survey(others=()):
+    """Time P2 A-D at every P of PS in SHAPE, P6 at the same P in its own
+    shape, and each of `others` ((label, launch(nodes, tris, rays, variant,
+    iters) -> (acc, sink), warps per SM)), ITERS steps, after checking each
+    equal to its plain version bit for bit, over ROUNDS rounds of
+    TIMED_LAUNCHES in turns (the order reversed every round); print a line
+    each and the summary, and return the JSON dict."""
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     card = probes.card_line()
@@ -231,24 +280,103 @@ def main():
     rng = np.random.default_rng(0)
     sets = [tuple(torch.as_tensor(x, device=dev) for x in s)
             for s in tables(rng)]
+    packed = {P: pack_rays(P, [
+        torch.as_tensor(rng.normal(size=(8, 128)).astype(np.float32),
+                        device=dev) for _ in range(P * 6)]) for P in PS}
+    # (kernel, label, variant, P, launch(nodes, tris), warps, attributes)
+    configs = []
+    main = f"T={SHAPE[0]} S={SHAPE[1]}"
+    for P in PS:
+        sm = torch.full((BLOCKS,), -1, dtype=torch.int32, device=dev)
+        launch(*sets[0], packed[P], "A", 1, sm)
+        torch.cuda.synchronize()
+        if not bool((sm >= 0).all()):
+            raise AssertionError(f"P2 {SHAPE} left a block's SM unread")
+        warps = warps_per_sm(sm, SHAPE[0])
+        for v in VARIANTS:
+            configs.append((
+                "P2", main, v, P,
+                lambda n, t, P=P, v=v: launch(n, t, packed[P], v, ITERS),
+                warps, attributes(P, v)))
+        for label, call, warps in others:
+            for v in VARIANTS:
+                configs.append(("P2", label, v, P,
+                                lambda n, t, P=P, v=v, call=call: call(
+                                    n, t, packed[P], v, ITERS), warps, {}))
+        sh6 = p5.SHAPE[True]
+        configs.append(("P6", f"T={sh6[0]} S={sh6[1]}", "any", P,
+                        lambda n, t, P=P: p5.launch(n, packed[P], ITERS,
+                                                    True),
+                        None, p5.attributes(P, True)))
+    refs = {}
+    for kernel, label, v, P, call, _, _ in configs:
+        if (v, P) not in refs:
+            refs[v, P] = (p5.interleave_reference(sets[0][0], packed[P],
+                                                  ITERS, True)
+                          if kernel == "P6" else interleave2_reference(
+                              *sets[0], packed[P], v, ITERS))
+        acc, sink = call(*sets[0])
+        if not (torch.equal(acc, refs[v, P][0])
+                and torch.equal(sink, refs[v, P][1])):
+            raise AssertionError(f"{kernel} {label} {v} P={P} differs from "
+                                 "its plain version")
+    ms = {k: [] for k in range(len(configs))}
+    for r in range(ROUNDS):
+        order = range(len(configs)) if r % 2 == 0 else reversed(
+            range(len(configs)))
+        for k in order:
+            ms[k] += probes.launch_ms(configs[k][4], sets, n=TIMED_LAUNCHES)
     rows = []
-    for variant in VARIANTS:
-        for P in PS:
-            packed = pack_rays(P, [
-                torch.as_tensor(rng.normal(size=(8, 128)).astype(np.float32),
-                                device=dev) for _ in range(P * 6)])
-            ms = statistics.median(probes.launch_ms(
-                lambda n, t: launch(n, t, packed, variant, ITERS),
-                sets, n=TIMED_LAUNCHES))
-            per = ms * 1e-3 / ITERS
-            print(f"{variant} P={P}:  {ms:8.3f} ms  {per * 1e9:8.1f} "
-                  f"ns/iter  {per / P * 1e9:8.1f} ns/iter/chain", flush=True)
-            rows.append({"variant": variant, "P": P, "ms": ms,
-                         "ns_per_iter": per * 1e9,
-                         "ns_per_iter_chain": per / P * 1e9})
-    print(json.dumps({"probe": "probe_interleave2",
-                      "device": torch.cuda.get_device_name(0),
-                      "card": card, "iters": ITERS, "rows": rows}))
+    for k, (kernel, label, v, P, _, warps, attrs) in enumerate(configs):
+        m = statistics.median(ms[k])
+        row = {"kernel": kernel, "shape": label, "variant": v, "P": P,
+               "ms": m, "ns_per_step": m * 1e6 / ITERS,
+               "ns_per_step_chain": m * 1e6 / ITERS / P,
+               "warps_per_sm": warps, **attrs}
+        rows.append(row)
+        print(f"{kernel} {label:>10} {v:>3} P={P}: {m:8.4f} ms "
+              f"{row['ns_per_step']:8.1f} ns/step "
+              f"{row['ns_per_step_chain']:8.1f} ns/step/chain"
+              + ("" if warps is None else f", {warps} warps/SM")
+              + "".join(f", {a} {b}" for a, b in attrs.items()), flush=True)
+    by = {(r["kernel"], r["shape"], r["variant"], r["P"]): r for r in rows}
+    summary = {"iters": ITERS, "shape": list(SHAPE)}
+    for label in dict.fromkeys(r["shape"] for r in rows
+                               if r["kernel"] == "P2"):
+        ns = {(v, P): by["P2", label, v, P]["ns_per_step"]
+              for v in VARIANTS for P in PS}
+        # what each feature adds to a step: the stack, the leaf branch, the
+        # leaf tests at every step
+        summary[label] = {f"{name}_ns_per_step": {
+            P: ns[hi, P] - ns[lo, P] for P in PS}
+            for name, hi, lo in (("stack_B_minus_A", "B", "A"),
+                                 ("branch_C_minus_B", "C", "B"),
+                                 ("leaf_D_minus_B", "D", "B"))}
+    six = f"T={p5.SHAPE[True][0]} S={p5.SHAPE[True][1]}"
+    summary["A_minus_P6_ns_per_step"] = {
+        P: by["P2", main, "A", P]["ns_per_step"]
+        - by["P6", six, "any", P]["ns_per_step"] for P in PS}
+    floor = by["P2", main, "A", 1]
+    summary["latency_floor_ms"] = floor["ms"]
+    summary["latency_floor_ns_per_step"] = floor["ns_per_step"]
+    summary["ops_bound_ms_P1"] = p5.ops_bound_ms(1, ITERS)
+    print(f"latency floor (A, P=1, {main}): {ITERS} steps x "
+          f"{floor['ns_per_step']:.1f} ns = {floor['ms']:.4f} ms, against "
+          f"the card's operations bound {summary['ops_bound_ms_P1']:.6f} ms",
+          flush=True)
+    for k, v in summary.items():
+        if k not in ("iters", "latency_floor_ms", "latency_floor_ns_per_step",
+                     "ops_bound_ms_P1"):
+            print(f"{k}: {json.dumps(v)}", flush=True)
+    result = {"probe": "probe_interleave2", "device":
+              torch.cuda.get_device_name(0), "card": card, "rows": rows,
+              "summary": summary}
+    print(json.dumps(result))
+    return result
+
+
+def main():
+    survey()
 
 
 if __name__ == "__main__":

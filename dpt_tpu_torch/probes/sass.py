@@ -1,0 +1,68 @@
+"""The step loops of a built probe library's kernels in the machine code
+(`cuobjdump -sass`), for the scripts that count a step's instructions
+(scripts/torch_interleave_shapes.py, scripts/torch_interleave2_shapes.py).
+
+A kernel's step loop is its backward branch that spans the most global
+loads (LDG): each step of a probe loads its record (and leaf row), and the
+loops around it (set-up, the exit's merge) load less or nothing.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import re
+import subprocess
+
+
+def dump(lib_path) -> str:
+    """`cuobjdump -sass` of a built library (cuobjdump beside nvcc)."""
+    from dpt_tpu_torch.kernels import build
+
+    cuobjdump = pathlib.Path(build.find_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def opcode(text: str) -> str:
+    """The opcode of an instruction's text, past a predicate (@P0)."""
+    return text.split()[1 if text.startswith("@") else 0]
+
+
+def step_loops(text: str, kernel: str):
+    """[(match, opcodes)] for each function of the listing `text` whose
+    name matches the regex `kernel` (the match of its first line) and that
+    has a backward branch over a global load: the opcodes of its step loop,
+    from the branch's target to the branch, in order."""
+    out = []
+    for block in text.split("Function : ")[1:]:
+        m = re.search(kernel, block.splitlines()[0])
+        if m is None:
+            continue
+        instrs, labels = [], {}
+        for line in block.splitlines()[1:]:
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                labels[lab.group(1)] = len(instrs)
+                continue
+            ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if ins:
+                instrs.append((int(ins.group(1), 16), ins.group(2).strip()))
+        addr_index = {a: k for k, (a, _) in enumerate(instrs)}
+        best, best_loads = None, 0
+        for k, (_, text_k) in enumerate(instrs):
+            if opcode(text_k) != "BRA":
+                continue
+            tgt = re.search(r"`\((\.L_x_\d+)\)|BRA\s+(0x[0-9a-f]+)", text_k)
+            if tgt is None:
+                continue
+            j = (labels.get(tgt.group(1)) if tgt.group(1)
+                 else addr_index.get(int(tgt.group(2), 16)))
+            if j is None or j > k:
+                continue
+            n = sum(opcode(t).startswith("LDG") for _, t in instrs[j:k + 1])
+            if n > best_loads:
+                best, best_loads = (j, k), n
+        if best is not None:
+            out.append((m, [opcode(t) for _, t in
+                            instrs[best[0]:best[1] + 1]]))
+    return out

@@ -36,8 +36,6 @@ import collections
 import ctypes
 import json
 import pathlib
-import re
-import subprocess
 import sys
 
 import torch
@@ -47,6 +45,7 @@ sys.path.insert(0, str(ROOT))
 
 from dpt_tpu_torch.kernels import build  # noqa: E402
 from dpt_tpu_torch.probes import probe_interleave as p5  # noqa: E402
+from dpt_tpu_torch.probes import sass  # noqa: E402
 
 
 def sources(probe_dir: pathlib.Path):
@@ -78,54 +77,13 @@ def old_launcher(lib_path, any_in_index):
     return run
 
 
-def _opcode(text):
-    return text.split()[1 if text.startswith("@") else 0]
-
-
 def step_loops(lib_path):
     """{P: {...}} for each P5 kernel (no any) in the library, from
-    `cuobjdump -sass`: the backward branch spanning the most record loads
-    (LDG) is the step loop; a chain-step is one of its F2I."""
-    cuobjdump = pathlib.Path(build.find_nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
-                          capture_output=True, text=True, check=True).stdout
+    `cuobjdump -sass` (`probes.sass.step_loops`); a chain-step is one of
+    the step loop's F2I."""
     out = {}
-    for block in text.split("Function : ")[1:]:
-        m = re.search(r"interleave_kernelILi(\d+)ELb0E",
-                      block.splitlines()[0])
-        if m is None:
-            continue
-        instrs, labels = [], {}
-        for line in block.splitlines()[1:]:
-            lab = re.match(r"\s*(\.L_x_\d+):", line)
-            if lab:
-                labels[lab.group(1)] = len(instrs)
-                continue
-            ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
-            if ins:
-                instrs.append((int(ins.group(1), 16), ins.group(2).strip()))
-        addr_index = {a: k for k, (a, _) in enumerate(instrs)}
-
-        def loads(ops):
-            return sum(o.startswith("LDG") for o in ops)
-
-        best, best_loads = None, 0
-        for k, (_, text_k) in enumerate(instrs):
-            if _opcode(text_k) != "BRA":
-                continue
-            tgt = re.search(r"`\((\.L_x_\d+)\)|BRA\s+(0x[0-9a-f]+)", text_k)
-            if tgt is None:
-                continue
-            j = (labels.get(tgt.group(1)) if tgt.group(1)
-                 else addr_index.get(int(tgt.group(2), 16)))
-            if j is None or j > k:
-                continue
-            n = loads(_opcode(t) for _, t in instrs[j:k + 1])
-            if n > best_loads:
-                best, best_loads = (j, k), n
-        if best is None:
-            continue
-        ops = [_opcode(t) for _, t in instrs[best[0]:best[1] + 1]]
+    for m, ops in sass.step_loops(sass.dump(lib_path),
+                                  r"interleave_kernelILi(\d+)ELb0E"):
         chain_steps = sum(o.startswith("F2I") for o in ops)
         if not chain_steps:
             continue
@@ -136,7 +94,8 @@ def step_loops(lib_path):
             "loop_instructions": len(ops),
             "chain_steps": chain_steps,
             "per_chain_step": len(ops) / chain_steps,
-            "records_before_first_float": loads(ops[:first_float]) / 4,
+            "records_before_first_float": sum(
+                o.startswith("LDG") for o in ops[:first_float]) / 4,
             "by_opcode": {o: c / chain_steps for o, c in
                           collections.Counter(o.split(".")[0]
                                               for o in ops).most_common()},
@@ -164,7 +123,7 @@ def main():
     ap.add_argument("--iters", type=int, default=p5.ITERS)
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
-    others, sass = [], {}
+    others, found = [], {}
     old_path = None
     if args.old is not None:
         old_path = build.build("libdpt_interleave_old", sources(args.old))
@@ -173,13 +132,13 @@ def main():
                    for anyi in (False, True)]
     result = p5.survey(others, iters=args.iters, rounds=args.rounds)
     if args.sass:
-        sass["new"] = step_loops(build.build(
+        found["new"] = step_loops(build.build(
             "libdpt_interleave", sources(build.PROBE_CSRC)))
         if old_path is not None:
-            sass["old"] = step_loops(old_path)
-        for label, loops in sass.items():
+            found["old"] = step_loops(old_path)
+        for label, loops in found.items():
             print_sass(label, loops)
-        print(json.dumps({"sass": sass, "summary": result["summary"]}))
+        print(json.dumps({"sass": found, "summary": result["summary"]}))
 
 
 if __name__ == "__main__":

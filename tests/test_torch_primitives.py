@@ -6,7 +6,9 @@
   - P4 (`probe_crossbar`): the five kernels of scripts/probe_crossbar.py
     (B at K = 1, 4, 12) with ITERS = 16; E allclose at rtol 1e-6 (XLA
     contracts its multiply-add chain into fused multiply-adds, the port
-    rounds each operation), the others bit-equal.
+    rounds each operation), the others bit-equal; E's chain latency bound
+    and the share taken against the larger bound, and the plain version
+    of the bare chain that reads the card's clocks an operation.
   - P7 (`probe_pallas`) and P8 (`probe_pallas2`): the eight Mosaic feature
     checks of scripts/attic/probe_pallas.py and probe_pallas2.py,
     bit-equal, at indices in range and out of it (JAX takes a negative
@@ -348,6 +350,72 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tp7.smem_stack_while("meta")
 
 
+def test_latency_bound():
+    """2,000 steps of 141 dependent operations at 4 clocks each and
+    1.98 GHz: 0.570 ms."""
+    assert probes.latency_bound_ms(2000, 141, 4) == pytest.approx(
+        2000 * 141 * 4 / 1.98e9 * 1e3, rel=1e-12)
+    assert probes.latency_bound_ms(2000, 141, 4) == pytest.approx(0.570,
+                                                                  abs=5e-4)
+    assert probes.latency_bound_ms(2000, 141, 4, clock_hz=0.99e9) == (
+        pytest.approx(1.1394, abs=1e-4))
+
+
+def test_share_against_the_larger_bound():
+    """E's row: a chain of CHAIN_OPS = 141 dependent operations a step;
+    its share is the latency bound over the kernel time where that bound is
+    the larger, and the card's operations bound where it is.  The other
+    rows have no chain and keep the card's bound."""
+    a = {k: torch.as_tensor(v)
+         for k, v in tp4.inputs(np.random.default_rng(0)).items()}
+    lns = tp4.launches(a)
+    math = lns["crossbar_math"]
+    assert tp4.CHAIN_OPS == 141 and math.chain_ops == tp4.CHAIN_OPS
+    assert math.ops == {"f32": 1024 * tp4.ITERS * 141}
+    m = probes.launch_bounds(math, 1.1825, 4.0)
+    assert m["bound_by"] == "operations"
+    assert m["latency_bound_ms"] == pytest.approx(0.5697, abs=1e-4)
+    assert m["latency_bound_ms"] > m["bound_ms"]
+    assert m["share"] == pytest.approx(m["latency_bound_ms"] / 1.1825)
+    # a latency under the operations bound leaves the share to the latter
+    low = probes.launch_bounds(math, 1.1825, 0.01)
+    assert low["share"] == pytest.approx(low["bound_ms"] / 1.1825)
+    for name, ln in lns.items():
+        if name != "crossbar_math":
+            m = probes.launch_bounds(ln, 0.1, 4.0)
+            assert ln.chain_ops == 0 and "latency_bound_ms" not in m
+            assert m["share"] == pytest.approx(m["bound_ms"] / 0.1)
+
+
+def test_op_chain_reference_rounds_each_operation():
+    """The bare chain's plain version (what the card's clocks a dependent
+    operation are read from) rounds each multiply and add to float32, as
+    the kernel does under -fmad=false: numpy float32 gives the same ends."""
+    x = np.random.default_rng(5).normal(size=(tp4.ROWS, tp4.LANES)).astype(
+        np.float32)
+    got = tp4.op_chain_reference(torch.as_tensor(x), steps=3)
+    v = x.reshape(-1)[:32].copy()
+    for _ in range(3 * tp4.OP_CHAIN_PAIRS):
+        v = v * np.float32(tp4.MUL) + np.float32(tp4.ADD)
+    assert got.dtype == torch.float32 and got.shape == (32,)
+    np.testing.assert_array_equal(got.numpy(), v)
+
+
+def test_op_cycles_refuses_cpu(monkeypatch):
+    """The clocks are read only on the card: a CPU tile raises before the
+    library is loaded."""
+    from dpt_tpu_torch.kernels import build
+
+    def refuse():
+        raise AssertionError("the probe library was loaded")
+
+    monkeypatch.setattr(build, "load_probe_library", refuse)
+    with pytest.raises(ValueError, match="CUDA"):
+        tp4.op_cycles(torch.zeros((tp4.ROWS, tp4.LANES)))
+    with pytest.raises(ValueError, match="CUDA"):
+        tp4.chain_cycles(torch.zeros((tp4.ROWS, tp4.LANES)))
+
+
 def test_dyn_start_is_jax_indexing():
     i = torch.tensor([-9, -8, -1, 0, 5, 7, 8, 100], dtype=torch.int32)
     assert probes.dyn_start(i, 8).tolist() == [0, 0, 7, 0, 5, 7, 7, 7]
@@ -447,6 +515,28 @@ def test_loop_kernel_exact_on_card(cuda, kernel):
 @pytest.mark.parametrize("kernel", FEATURE_KERNELS)
 def test_feature_kernel_exact_on_card(cuda, kernel, i):
     _exact_on_card(cuda, kernel, i)
+
+
+@pytest.mark.cuda
+def test_vector_ops_exact_on_card_at_script_steps(cuda):
+    """P4-e over 32 one-warp blocks at the TPU script's 2,000 steps equals
+    its plain version bit for bit; its first warp alone (its own clocks an
+    operation) computes the same 32 elements; the bare chain that reads
+    the card's clocks a dependent operation equals its plain version, at
+    a few clocks an operation (no launch count: an instrument)."""
+    x = torch.as_tensor(np.random.default_rng(24).normal(
+        size=(tp4.ROWS, tp4.LANES)).astype(np.float32), device=cuda)
+    before = dict(probes.launch_counts)
+    got = tp4.vector_ops(x)
+    own, first = tp4.chain_cycles(x)
+    cycles, ends = tp4.op_cycles(x)
+    torch.cuda.synchronize()
+    assert probes.launch_counts == {**before, "crossbar_math":
+                                    before["crossbar_math"] + 2}
+    assert torch.equal(got, tp4.vector_ops_reference(x, tp4.ITERS))
+    assert torch.equal(first, got.reshape(-1)[:32])
+    assert torch.equal(ends.cpu(), tp4.op_chain_reference(x.cpu()))
+    assert 1.0 < cycles < 64.0 and 1.0 < own < 64.0
 
 
 @pytest.mark.cuda

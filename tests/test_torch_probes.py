@@ -21,9 +21,12 @@ patched in for the module.  Each JAX probe runs once, at P = 2, and its
 chains are independent, so chain 0 is the probe at P = 1 on the first six
 ray tiles: the port at P = 1 is held against it, and at P = 2 against
 both chains.  Tests marked `cuda` compare each kernel with its plain
-version on the card, bit for bit (P5 and P6 in the shape the library
-takes); they skip without one.  The CPU also checks P5 / P6's shapes and
-the wrapper's refusal of a shape or P the kernel does not take.
+version on the card, bit for bit (P5, P6 and P2 in the shape the library
+takes), and check that the C side refuses other grids; they skip without
+one.  The CPU also checks the shapes of P5, P6 and P2, the wrappers'
+refusal of a shape (P5 / P6), P or variant the kernel does not take (P2's
+before the library is loaded), and the SASS step-loop finder the shape
+scripts share (`probes.sass`).
 """
 
 import functools
@@ -177,6 +180,116 @@ def test_interleave_refuses_shape(any_in_index, P, shape):
     if P not in tp5.PS:
         with pytest.raises(ValueError):
             tp5.launch(torch.as_tensor(nodes), packed, 4, any_in_index)
+
+
+@pytest.mark.parametrize("P", tp2.PS)
+def test_interleave2_shape_rule(monkeypatch, P):
+    """P2 has one shape at every P: one cluster of 2-16 blocks (16 is the
+    largest cluster the card takes) whose warps cover the 1,024 tile
+    elements once; `launch` hands the C export that geometry."""
+    from dpt_tpu_torch import probes
+    from dpt_tpu_torch.kernels import build
+
+    T, S = tp2.SHAPE
+    assert T % 32 == 0 and T * tp2.BLOCKS == tp2.TILE
+    assert 2 <= S <= 16 and S == tp2.BLOCKS
+    geometry = []
+
+    class Library:
+        def dpt_probe_interleave2(self, *args):
+            geometry.append(args[6:9])  # threads, cluster, blocks
+            return 0
+
+    monkeypatch.setattr(build, "load_probe_library", Library)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setitem(probes.launch_counts, "interleave2", 0)
+    nodes, tris, rays = _interleave2_inputs(P)
+    packed = tp5.pack_rays(P, [torch.as_tensor(r) for r in rays])
+    tp2.launch(torch.as_tensor(nodes), torch.as_tensor(tris), packed, "B", 4)
+    assert geometry == [(T, S, tp2.BLOCKS)]
+    assert probes.launch_counts["interleave2"] == 1
+
+
+@pytest.fixture
+def no_probe_library(monkeypatch):
+    """Fail the test if it loads (and so builds) the probe library."""
+    from dpt_tpu_torch.kernels import build
+
+    def refuse():
+        raise AssertionError("the probe library was loaded")
+
+    monkeypatch.setattr(build, "load_probe_library", refuse)
+
+
+@pytest.mark.parametrize("P, variant", [
+    (2, "A"), (4, "D"), (3, "B"),  # P is 1 or 8
+    (1, "E"), (8, "a"), (1, None),  # variants A-D
+])
+def test_interleave2_launch_refuses_before_build(no_probe_library, P,
+                                                 variant):
+    nodes, tris, rays = _interleave2_inputs(P)
+    packed = tp5.pack_rays(P, [torch.as_tensor(r) for r in rays])
+    with pytest.raises(ValueError):
+        tp2.launch(torch.as_tensor(nodes), torch.as_tensor(tris), packed,
+                   variant, 4)
+
+
+# A cuobjdump -sass listing in its layout: a P5 kernel with a set-up loop
+# (one load) and its step loop (two loads, branch to a label), a P2 kernel
+# whose step loop branches to an address under a predicate, and one
+# kernel whose only branch goes forward.
+_SASS = """
+        Function : _Z17interleave_kernelILi8ELb0EEvPKfS1_iiPfPi
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+.L_x_0:
+        /*0010*/                   LDG.E R2, desc[UR4][R4.64] ;
+        /*0020*/                   IADD3 R4, R4, 0x4, RZ ;
+        /*0030*/               @P0 BRA `(.L_x_0) ;
+.L_x_1:
+        /*0040*/                   LDG.E.128 R8, desc[UR4][R6.64] ;
+        /*0050*/                   LDG.E R3, desc[UR4][R6.64+0x30] ;
+        /*0060*/                   FADD R5, R8, R2 ;
+        /*0070*/                   F2I.TRUNC.NTZ R7, R3 ;
+        /*0080*/               @P1 BRA `(.L_x_1) ;
+        /*0090*/                   EXIT ;
+        ..........
+        Function : _Z18interleave2_kernelILi8ELi3EEvPKfS1_S1_iPfPiS2_
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDG.E R2, desc[UR4][R4.64] ;
+        /*0020*/                   MUFU.RCP R3, R2 ;
+        /*0030*/                   CALL.REL.NOINC 0x90 ;
+        /*0040*/               @!P0 BRA 0x10 ;
+        /*0050*/                   EXIT ;
+        ..........
+        Function : _Z18interleave2_kernelILi1ELi0EEvPKfS1_S1_iPfPiS2_
+        /*0000*/                   LDG.E R2, desc[UR4][R4.64] ;
+        /*0010*/                   BRA 0x30 ;
+        /*0020*/                   NOP ;
+        /*0030*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("kernel, want", [
+    (r"interleave_kernelILi(\d+)ELb0E",
+     [("8",), ["LDG", "LDG", "FADD", "F2I", "BRA"]]),
+    (r"interleave2_kernelILi(\d+)ELi(\d+)E",
+     [("8", "3"), ["LDG", "MUFU", "CALL", "BRA"]]),
+    (r"interleave_kernelILi(\d+)ELb1E", None),  # no such function
+])
+def test_sass_step_loop(kernel, want):
+    """The step loop is the backward branch over the most loads (a label
+    or an address as its target, a predicate before it); a function with
+    no backward branch over a load has none."""
+    from dpt_tpu_torch.probes import sass
+
+    found = [(m.groups(), [o.split(".")[0] for o in ops])
+             for m, ops in sass.step_loops(_SASS, kernel)]
+    assert found == ([] if want is None else [tuple(want)])
+    assert sass.opcode("@!P0 BRA 0x10") == "BRA"
+    assert sass.opcode("F2I.TRUNC.NTZ R7, R3") == "F2I.TRUNC.NTZ"
 
 
 def _mt8_ok(trow, o, d):
@@ -460,16 +573,53 @@ def test_interleave_c_side_refuses_grid(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 7])
 @pytest.mark.parametrize("P", tp2.PS)
 @pytest.mark.parametrize("variant", tp2.VARIANTS)
-def test_interleave2_kernel_exact(cuda, variant, P):
-    nodes, tris, rays = _interleave2_inputs(P)
+def test_interleave2_kernel_exact(cuda, variant, P, seed):
+    """P2's cluster kernel equals the plain version bit for bit (tiles and
+    sink), through `make` and through `launch` reading each block's SM,
+    which must be an SM of the card."""
+    nodes, tris, rays = _interleave2_inputs(P, seed)
     args = [torch.as_tensor(x, device=cuda) for x in (nodes, tris, *rays)]
     tiles, sink = tp2.make(P, variant, iters=64)(*args)
-    ref = tp2.interleave2_reference(args[0], args[1],
-                                    tp5.pack_rays(P, args[2:]), variant, 64)
+    packed = tp5.pack_rays(P, args[2:])
+    ref = tp2.interleave2_reference(args[0], args[1], packed, variant, 64)
     assert torch.equal(torch.stack(tiles).reshape(P, -1), ref[0])
     assert torch.equal(sink, ref[1])
+    sm = torch.full((tp2.BLOCKS,), -1, dtype=torch.int32, device=cuda)
+    acc, sink = tp2.launch(args[0], args[1], packed, variant, 64, sm)
+    assert torch.equal(acc, ref[0]) and torch.equal(sink, ref[1])
+    props = torch.cuda.get_device_properties(cuda)
+    assert bool(((sm >= 0) & (sm < props.multi_processor_count)).all())
+
+
+@pytest.mark.cuda
+def test_interleave2_c_side_refuses_grid(cuda):
+    """The C launch refuses a P, variant or shape it is not built for and a
+    grid that does not cover the tile once in one cluster:
+    cudaErrorInvalidValue (1)."""
+    from dpt_tpu_torch.kernels.build import load_probe_library
+
+    lib = load_probe_library()
+    nodes, tris, rays = _interleave2_inputs(1)
+    n, t = (torch.as_tensor(x, device=cuda) for x in (nodes, tris))
+    packed = tp5.pack_rays(1, [torch.as_tensor(r, device=cuda)
+                               for r in rays])
+    out = torch.empty((8, tp5.TILE), device=cuda)
+    sink = torch.empty((8, 3), dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    T, S = tp2.SHAPE
+    for P, variant, threads, cluster, blocks in (
+            (1, 0, T, S, S - 1), (1, 1, T, S // 2, S), (8, 3, T, S, 2 * S),
+            (1, 0, 1024, 1, 1), (2, 0, T, S, S), (1, 4, T, S, S),
+            (8, 1, 256, 4, 4), (1, 2, 32, 32, 32), (8, 0, 2 * T, S, S),
+            (8, 3, 64, 16, 16)):
+        err = lib.dpt_probe_interleave2(
+            n.data_ptr(), t.data_ptr(), packed.data_ptr(), P, variant, 4,
+            threads, cluster, blocks, out.data_ptr(), sink.data_ptr(), None,
+            stream)
+        assert err == 1, (P, variant, threads, cluster, blocks)
 
 
 @pytest.mark.cuda
