@@ -129,16 +129,20 @@ printing one line or more:
                 print each launch's grid, block, cluster and warps on the
                 busiest SM with its kernel time, P2 the same for each
                 variant and P, what B, C and D add over A and B, and the
-                latency floor; P1 (smem_walk.cu)
-                in blocks of
-                128 and 1024 threads at every staged prefix (0 and the
-                ends of BFS levels 0-5) on two
-                126,621-ray flagship streams equal to K1's lane kernel and
-                the plain walk bit for bit.  Each probe is run once through
+                latency floor; P1 (smem_walk.cu) in every mode
+                (`r3_smem_proto.modes`: 0 and the end of every BFS level,
+                the last the whole table; blocks of 128 and 1024 threads
+                where one block holds the prefix, else 1024 in the
+                smallest cluster that does, the top 341 records in every
+                block and the rest interleaved) on two 126,621-ray
+                flagship streams equal to K1's lane kernel and the plain
+                walk bit for bit, and P1's leaf-test reciprocal equal to
+                1.0f / x on every float32 of its input range (|x| >=
+                1e-6, both signs).  Each probe is run once through
                 its public function with the launch counts set to 0 before
                 and read after; one timing line each (wrapper, kernel,
-                plain and bound; P1 per prefix beside K1 lane, with blocks
-                per SM).  The probes' launch counts are
+                plain and bound; P1 per mode beside K1 lane, with blocks
+                per SM and clusters at once).  The probes' launch counts are
                 set to 0 before phase 3 and read before phase 20: the
                 render, optimize and walk phases may launch no probe.
  21. primitives — the primitive probes (the same library): P3
@@ -303,9 +307,14 @@ DESIGNS = {
         "3-stage shared-memory ring; the geometry picked per stream by "
         "kernels/intersect.py _geometry"),
     "smem_walk": (
-        "K1's lane walk (nearest), blocks of 128 or 1024 threads; the first "
-        "n_staged records (whole BFS levels) copied to dynamic shared memory "
-        "at block start, the rest and the leaf rows from global memory"),
+        "K1's lane walk (nearest); the first n_staged records (whole BFS "
+        "levels, up to the whole table) bulk-copied into shared memory at "
+        "block start, in one block of 128 or 1024 threads or over a cluster "
+        "of 2-8 blocks of 1024 (the top 341 records in each, the rest "
+        "interleaved, remote ones read through distributed shared memory); "
+        "the rest and the leaf rows from global memory; a leaf test with "
+        "no call site (MUFU.RCP and one Newton step, the IEEE division "
+        "redone only past 2^126 by a warp vote)"),
     "interleave": (
         "32 blocks of one warp, one thread per tile element, each block "
         "recomputing the table-only chain index; P chains unrolled in "
@@ -1836,7 +1845,7 @@ def phase_probes(device, main_path_launches):
     cfg = preset("sylveon512", width=1024, height=1024, traversal="quad")
     scene = procedural_scene(FLAGSHIP_TRIS_TARGET, device=device)
     accel = build_accel(scene, cfg)
-    prefixes = p1.staged_prefixes(accel)
+    modes1 = p1.modes(accel)
     bounce = [incoherent_rays(scene, BOUNCE_RAYS, 500 + k, device)[:2]
               for k in range(2)]
     chains = {("interleave", P): (p5.make(P, PROBE_ITERS), P)
@@ -1852,11 +1861,11 @@ def phase_probes(device, main_path_launches):
     out5 = {k: go(tables5[0], *rays5[P]) for k, (go, P) in chains.items()}
     out2 = {k: go(*sets2[0], *rays2[k[1]]) for k, go in steps.items()}
     out1 = [{(b, s): p1.smem_nearest(o, d, accel, s, b)
-             for b in p1.BLOCKS for s in prefixes} for o, d in bounce]
+             for s, b in modes1} for o, d in bounce]
     torch.cuda.synchronize()
     want = {"interleave": len(p5.PS), "interleave_any": len(p5.PS),
             "interleave2": len(steps),
-            "smem_walk": len(p1.BLOCKS) * len(prefixes) * len(bounce)}
+            "smem_walk": len(modes1) * len(bounce)}
     launches = {k: v for k, v in probes.launch_counts.items()
                 if k in want or v}  # the walk probes', and any other's
     require(launches == want, f"[{tag}] probe launches {launches}, want "
@@ -1929,19 +1938,30 @@ def phase_probes(device, main_path_launches):
                     "K1 lane or the plain walk")
             compared["smem_walk"] += [(t, pt), (t, kt)]
     errs = {name: max_abs_err(pairs) for name, pairs in compared.items()}
-    attrs = {(b, s): p1.attributes(s, b) for b in p1.BLOCKS
-             for s in prefixes}
+    attrs = {(b, s): p1.attributes(s, b) for s, b in modes1}
     print(f"[{tag}] exact: P5 and P6 at P {p5.PS} (through make, and "
           f"reading each block's SM; (T, S): P5 {p5.SHAPE[False]}, P6 "
           f"{p5.SHAPE[True]}), P2 A-D at P {p2.PS} (the same; (T, S) "
           f"{p2.SHAPE}), {PROBE_ITERS} steps, tiles and sink; "
-          f"P1 in blocks of {p1.BLOCKS} at n_staged {prefixes} (level "
-          f"starts {p1.level_starts(accel)[:8]}) on {len(bounce)} x "
-          f"{BOUNCE_RAYS} rays = K1 lane = plain walk; registers/local "
-          "bytes/blocks per SM "
+          f"P1 in every mode (n_staged, block, cluster, replicated) "
+          f"{[(s, *p1.shape(s, b)) for s, b in modes1]} (level starts "
+          f"{p1.level_starts(accel)}) on {len(bounce)} x {BOUNCE_RAYS} "
+          "rays = K1 lane = plain walk; registers/local bytes/blocks per "
+          "SM/clusters at once "
           + ", ".join(f"{b}/{s}: {a['num_regs']}/{a['local_bytes']}/"
-                      f"{a['blocks_per_sm']}" for (b, s), a in attrs.items())
+                      f"{a['blocks_per_sm']}/{a['max_clusters']}"
+                      for (b, s), a in attrs.items())
           + f"; launches {launches}; max_abs_err {errs}", flush=True)
+    # P1's reciprocal against 1.0f / x on every float32 of its input range.
+    t0 = time.perf_counter()
+    rcp = p1.rcp_check(device)
+    require(rcp["differing"] == 0 and rcp["tested"] == rcp["expected"],
+            f"[{tag}] P1's leaf-test reciprocal differs from 1.0f / x: "
+            f"{rcp}")
+    print(f"[{tag}] P1 reciprocal = 1.0f / x on every float32 with |x| >= "
+          f"1e-6 (both signs, inf and NaN): {rcp['differing']} differing of "
+          f"{rcp['tested']}, {rcp['fast']} on the fast path, in "
+          f"{1e3 * (time.perf_counter() - t0):.1f} ms", flush=True)
 
     # Timing: the wrapper (CUDA events, median), the kernel (events behind
     # a sleep, median), the plain version on the card (median), the bound.
@@ -2020,17 +2040,20 @@ def phase_probes(device, main_path_launches):
     per_s = {f"kernel_ms_block{b}_staged_{s}": statistics.median(
         probes.launch_ms(lambda o, d, s=s, b=b: p1.launch(o, d, accel, s, b),
                          bounce, n=6))
-        for b in p1.BLOCKS for s in prefixes}
+        for s, b in modes1}
     per_s["kernel_ms_k1_lane"] = statistics.median(probes.launch_ms(
         lambda o, d: quad._launch(o, d, None, accel, False, "lane"), bounce,
         n=6))
     per_s["blocks_per_sm"] = {f"{b}/{s}": a["blocks_per_sm"]
                               for (b, s), a in attrs.items()}
-    best_b, best = min(((b, s) for b in p1.BLOCKS for s in prefixes),
+    per_s["clusters"] = {f"{b}/{s}": p1.shape(s, b)[1] for s, b in modes1}
+    per_s["rcp_check"] = rcp
+    best_b, best = min(((b, s) for s, b in modes1),
                        key=lambda k: per_s[f"kernel_ms_block{k[0]}_staged_"
                                            f"{k[1]}"])
     timed("smem_walk", f"{BOUNCE_RAYS} rays, block {best_b}, "
-          f"n_staged={best} (the fastest)",
+          f"n_staged={best}, cluster {p1.shape(best, best_b)[1]} (the "
+          "fastest)",
           lambda o, d: p1.smem_nearest(o, d, accel, best, best_b),
           lambda o, d: p1.launch(o, d, accel, best, best_b),
           lambda o, d: p1.smem_nearest_reference(o, d, accel), bounce,

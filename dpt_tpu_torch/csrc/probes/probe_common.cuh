@@ -4,7 +4,8 @@
 // step is a dependent record load, a slab pair, and the next index, and
 // whose tile-wide ORs (P6, P2) are words exchanged over a thread-block
 // cluster by st.async into mbarrier-counted slots; P1
-// (smem_walk.cu) takes K1's helpers from traverse_common.cuh; the primitive
+// (smem_walk.cu) stages its records by bulk copies counted on an mbarrier
+// and takes K1's helpers from traverse_common.cuh; the primitive
 // probes P3, P4, P7 and P8 (gather.cu, crossbar.cu, features.cu) take the
 // tile shape and JAX's dynamic-slice start.
 //
@@ -110,16 +111,33 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar) {
                : "memory");
 }
 
-// The one local arrival of the next phase of `bar`, expecting kStepBytes.
-__device__ __forceinline__ void mbar_expect_step(uint64_t* bar) {
+// The one local arrival of the next phase of `bar`, expecting `bytes`.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
                    smem_addr(bar)),
-               "r"(kStepBytes)
+               "r"(bytes)
                : "memory");
 }
 
+// The one local arrival of the next phase of `bar`, expecting kStepBytes.
+__device__ __forceinline__ void mbar_expect_step(uint64_t* bar) {
+  mbar_expect(bar, kStepBytes);
+}
+
+// Copies `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// global `src` to this block's shared `dst` by the copy engine, completing
+// `bytes` of the transaction of `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // Waits until the phase of `bar` with this parity has completed.  A word
-// that never lands is a fault, not a hang: the wait traps after about 10 s
+// or copy that never lands is a fault, not a hang: the wait traps after about 10 s
 // (2e10 cycles), which the launch's caller sees as an error.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const long long start = clock64();

@@ -189,8 +189,11 @@ def load_probe_library() -> ctypes.CDLL:
     # tiles, then out and the stream.
     tile_iters = [p, p, i, p, p]  # x, index tile, iters | idx, table, dim
     for name, args in (
-            ("dpt_quad_traverse_smem", [p, p, p, p, i, i, i, p, p, p]),
-            ("dpt_quad_traverse_smem_attrs", [i, i, ip, ip, ip]),
+            ("dpt_quad_traverse_smem", [p, p, p, p, i, i, i, i, i, i, p, p,
+                                        p]),
+            ("dpt_quad_traverse_smem_attrs", [i, i, i, i, ip, ip, ip, ip,
+                                              ip]),
+            ("dpt_smem_walk_rcp_check", [ctypes.c_uint, p, p]),
             ("dpt_probe_interleave", [p, p, i, i, i, i, i, i, p, p, p, p]),
             ("dpt_probe_interleave_attrs", [i, i, i, i, i, ip, ip]),
             ("dpt_probe_interleave2", [p, p, p, i, i, i, i, i, i, p, p, p,

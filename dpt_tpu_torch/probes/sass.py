@@ -1,10 +1,13 @@
 """The step loops of a built probe library's kernels in the machine code
 (`cuobjdump -sass`), for the scripts that count a step's instructions
-(scripts/torch_interleave_shapes.py, scripts/torch_interleave2_shapes.py).
+(scripts/torch_interleave_shapes.py, scripts/torch_interleave2_shapes.py,
+and P1's leaf loop in `python -m dpt_tpu_torch.probes.r3_smem_proto
+--sass`).
 
 A kernel's step loop is its backward branch that spans the most global
 loads (LDG): each step of a probe loads its record (and leaf row), and the
-loops around it (set-up, the exit's merge) load less or nothing.
+loops around it (set-up, the exit's merge) load less or nothing.  A leaf
+loop is the innermost such loop.
 """
 
 from __future__ import annotations
@@ -28,11 +31,15 @@ def opcode(text: str) -> str:
     return text.split()[1 if text.startswith("@") else 0]
 
 
-def step_loops(text: str, kernel: str):
+def step_loops(text: str, kernel: str, innermost=False):
     """[(match, opcodes)] for each function of the listing `text` whose
     name matches the regex `kernel` (the match of its first line) and that
     has a backward branch over a global load: the opcodes of its step loop,
-    from the branch's target to the branch, in order."""
+    from the branch's target to the branch, in order.  With `innermost`,
+    only loops that hold no other backward branch count, and of two with as
+    many loads the shorter wins: a walk's leaf loop (P1's leaf rows, whose
+    redo with the IEEE reciprocal is a second, longer loop over the same
+    loads) rather than the walk loop around it."""
     out = []
     for block in text.split("Function : ")[1:]:
         m = re.search(kernel, block.splitlines()[0])
@@ -48,7 +55,7 @@ def step_loops(text: str, kernel: str):
             if ins:
                 instrs.append((int(ins.group(1), 16), ins.group(2).strip()))
         addr_index = {a: k for k, (a, _) in enumerate(instrs)}
-        best, best_loads = None, 0
+        loops = []
         for k, (_, text_k) in enumerate(instrs):
             if opcode(text_k) != "BRA":
                 continue
@@ -57,10 +64,16 @@ def step_loops(text: str, kernel: str):
                 continue
             j = (labels.get(tgt.group(1)) if tgt.group(1)
                  else addr_index.get(int(tgt.group(2), 16)))
-            if j is None or j > k:
-                continue
+            if j is not None and j <= k:
+                loops.append((j, k))
+        if innermost:
+            loops = [(j, k) for j, k in loops
+                     if not any(j <= a and b < k for a, b in loops)]
+        best, best_loads = None, 0
+        for j, k in loops:
             n = sum(opcode(t).startswith("LDG") for _, t in instrs[j:k + 1])
-            if n > best_loads:
+            if n > best_loads or (innermost and best is not None and n ==
+                                  best_loads and k - j < best[1] - best[0]):
                 best, best_loads = (j, k), n
         if best is not None:
             out.append((m, [opcode(t) for _, t in

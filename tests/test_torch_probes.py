@@ -8,8 +8,13 @@
     the stack, mt8 ok count) against a per-chain scalar loop.
   - P1 (`r3_smem_proto`): the plain walk against `smem_nearest` on a
     400-triangle procedural scene (SAH leaf 8, the JAX tables carried
-    across) at 16² rays: t allclose at rtol 1e-6 after min(t, T_MAX), tri
-    exact on a stream without equal-t ties; the host's level starts.
+    across) at 16² rays, at every staged prefix up to the whole table: t
+    allclose at rtol 1e-6 after min(t, T_MAX), tri exact on a stream
+    without equal-t ties; the host's level starts; the record layout over
+    a cluster (`plan`, `home`) on that table and on the flagship's level
+    starts, given as numbers; a scene with one huge triangle planted where
+    the leaf test's 1 / det is subnormal, whose hits the plain walk finds
+    at the plane's distance.
 
 The probe modules' imports (no jax, no dpt_tpu; the render path imports
 no probe) are checked with the package's, in
@@ -23,9 +28,12 @@ ray tiles: the port at P = 1 is held against it, and at P = 2 against
 both chains.  Tests marked `cuda` compare each kernel with its plain
 version on the card, bit for bit (P5, P6 and P2 in the shape the library
 takes), and check that the C side refuses other grids; they skip without
-one.  The CPU also checks the shapes of P5, P6 and P2, the wrappers'
-refusal of a shape (P5 / P6), P or variant the kernel does not take (P2's
-before the library is loaded), and the SASS step-loop finder the shape
+one; P1 also in forced cluster sizes and replications, on the planted
+scene (its IEEE redo, against K1 lane too), its reciprocal on every
+float32 of its input range, and the C side's refusals.  The CPU
+also checks the shapes of P5, P6 and P2, the wrappers' refusal of a shape
+(P5 / P6, P1), P or variant the kernel does not take (P2's before the
+library is loaded), and the SASS step- and leaf-loop finder the shape
 scripts share (`probes.sass`).
 """
 
@@ -269,25 +277,62 @@ _SASS = """
         /*0010*/                   BRA 0x30 ;
         /*0020*/                   NOP ;
         /*0030*/                   EXIT ;
+        ..........
+        Function : _ZN12_GLOBAL__N_116smem_walk_kernelILi1024ELi4EEEvPKfS2_
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+.L_x_10:
+        /*0010*/                   LDG.E.128 R4, desc[UR4][R2.64] ;
+        /*0020*/                   FMNMX R8, R4, R5, PT ;
+.L_x_11:
+        /*0030*/                   LDG.E.128.CONSTANT R12, desc[UR4][R10.64] ;
+        /*0040*/                   LDG.E.128.CONSTANT R16, desc[UR4][R10.64+0x10] ;
+        /*0050*/                   MUFU.RCP R20, R12 ;
+        /*0060*/                   FFMA R21, -R12, R20, 1 ;
+        /*0070*/                   FFMA R20, R20, R21, R20 ;
+        /*0080*/               @P0 BRA `(.L_x_11) ;
+        /*0090*/                   VOTE.ANY R22, PT, P1 ;
+.L_x_12:
+        /*00a0*/                   LDG.E.128.CONSTANT R12, desc[UR4][R10.64] ;
+        /*00b0*/                   LDG.E.128.CONSTANT R16, desc[UR4][R10.64+0x10] ;
+        /*00c0*/                   MUFU.RCP R20, R12 ;
+        /*00d0*/                   BSSY B0, `(.L_x_13) ;
+        /*00e0*/                   CALL.REL.NOINC `(.L_x_20) ;
+.L_x_13:
+        /*00f0*/                   BSYNC B0 ;
+        /*0100*/                   FFMA R21, -R12, R20, 1 ;
+        /*0110*/               @P2 BRA `(.L_x_12) ;
+        /*0120*/               @P3 BRA `(.L_x_10) ;
+        /*0130*/                   EXIT ;
 """
 
 
-@pytest.mark.parametrize("kernel, want", [
-    (r"interleave_kernelILi(\d+)ELb0E",
+@pytest.mark.parametrize("kernel, innermost, want", [
+    (r"interleave_kernelILi(\d+)ELb0E", False,
      [("8",), ["LDG", "LDG", "FADD", "F2I", "BRA"]]),
-    (r"interleave2_kernelILi(\d+)ELi(\d+)E",
+    (r"interleave2_kernelILi(\d+)ELi(\d+)E", False,
      [("8", "3"), ["LDG", "MUFU", "CALL", "BRA"]]),
-    (r"interleave_kernelILi(\d+)ELb1E", None),  # no such function
+    (r"interleave_kernelILi(\d+)ELb1E", False, None),  # no such function
+    # P1: the walk loop holds the rare redo's CALL; its leaf loop does not
+    (r"smem_walk_kernelILi(\d+)ELi(\d+)E", True,
+     [("1024", "4"), ["LDG", "LDG", "MUFU", "FFMA", "FFMA", "BRA"]]),
+    (r"smem_walk_kernelILi(\d+)ELi(\d+)E", False,
+     [("1024", "4"), ["LDG", "FMNMX", "LDG", "LDG", "MUFU", "FFMA", "FFMA",
+                      "BRA", "VOTE", "LDG", "LDG", "MUFU", "BSSY", "CALL",
+                      "BSYNC", "FFMA", "BRA", "BRA"]]),
 ])
-def test_sass_step_loop(kernel, want):
+def test_sass_step_loop(kernel, innermost, want):
     """The step loop is the backward branch over the most loads (a label
     or an address as its target, a predicate before it); a function with
-    no backward branch over a load has none."""
+    no backward branch over a load has none.  The leaf loop (`innermost`)
+    is the shortest of the loops with no loop inside over the most loads:
+    P1's has no CALL."""
     from dpt_tpu_torch.probes import sass
 
     found = [(m.groups(), [o.split(".")[0] for o in ops])
-             for m, ops in sass.step_loops(_SASS, kernel)]
+             for m, ops in sass.step_loops(_SASS, kernel, innermost)]
     assert found == ([] if want is None else [tuple(want)])
+    if innermost:
+        assert "CALL" not in found[0][1]
     assert sass.opcode("@!P0 BRA 0x10") == "BRA"
     assert sass.opcode("F2I.TRUNC.NTZ R7, R3") == "F2I.TRUNC.NTZ"
 
@@ -490,7 +535,8 @@ def test_level_starts(port_tables):
         sub = rec[:starts[k + 1]]
         live = ~np.isnan(sub[:, 0:24:6]) & (sub[:, 24:28] >= 0)
         assert (sub[:, 24:28][live] < starts[k + 2]).all()
-    assert tp1.staged_prefixes(port) == [0] + sorted(set(starts[1:7]))
+    prefixes = tp1.staged_prefixes(port)
+    assert prefixes == [0] + starts[1:] and prefixes[-1] == port.n_wide
     with pytest.raises(ValueError):
         tp1.smem_nearest(torch.zeros(1, 3), torch.ones(1, 3), port,
                          port.n_wide + 1)
@@ -510,6 +556,131 @@ def test_level_starts_refuse_other_orders(port_tables):
     bad = dataclasses.replace(port, nodes_flat=rec.reshape(-1))
     with pytest.raises(ValueError):
         tp1.level_starts(bad)
+
+
+@pytest.fixture(scope="module")
+def slow_reciprocal_scene():
+    """The 400-triangle scene with one huge triangle planted in the plane
+    x = X just past it (edges 1.5e19 along y and z), and 4,097 rays from
+    origins 0.05-3 before that plane.  A ray with |dx| >= 0.38 meets it at
+    |det| >= 2^126, where 1 / det is subnormal: P1's fast reciprocal (FTZ)
+    gives 0 there, so u = v = t = 0 and the slot misses, and only the
+    warp vote's redo with the IEEE 1.0f / x finds the hit.  Returns (accel,
+    origin, direction, the huge triangle's id, X, [R] bool: the rays whose
+    nearest hit is the huge triangle at a finite |det| >= 2^126)."""
+    from dpt_tpu_torch import procedural_scene
+    from dpt_tpu_torch.accel.bvh import build_bvh_sah, host_bvh
+    from dpt_tpu_torch.kernels.quad import pack_quad
+
+    sc = procedural_scene(n_tris_target=400, device="cpu")
+    v, idx = sc.vertices.numpy(), sc.indices.numpy()
+    X = np.float32(v[:, 0].max() + 0.25)
+    E, H = np.float32(1.5e19), np.float32(7e18)
+    huge = np.array([[X, -H, -H], [X, E - H, -H], [X, -H, E - H]],
+                    np.float32)
+    V = np.concatenate([v, huge])
+    I = np.concatenate([idx, [[len(v), len(v) + 1, len(v) + 2]]]).astype(
+        np.int32)
+    accel = pack_quad(host_bvh(build_bvh_sah(V, I, leaf_size=8)),
+                      V[I[:, 0]], V[I[:, 1]], V[I[:, 2]], device="cpu")
+    rng = np.random.default_rng(5)
+    o = rng.normal(size=(4097, 3)).astype(np.float32)
+    o[:, 0] = X - rng.uniform(0.05, 3.0, size=4097).astype(np.float32)
+    d = rng.normal(size=(4097, 3)).astype(np.float32)
+    # det of the huge slot in K1's order (slot_test), float32
+    e1, e2 = huge[1] - huge[0], huge[2] - huge[0]
+    with np.errstate(over="ignore"):
+        p = np.stack([d[:, 1] * e2[2] - d[:, 2] * e2[1],
+                      d[:, 2] * e2[0] - d[:, 0] * e2[2],
+                      d[:, 0] * e2[1] - d[:, 1] * e2[0]], axis=1)
+        det = e1[0] * p[:, 0] + e1[1] * p[:, 1] + e1[2] * p[:, 2]
+    ot, od = torch.as_tensor(o), torch.as_tensor(d)
+    _, tri = tp1.smem_nearest_reference(ot, od, accel)
+    slow_hit = ((tri.numpy() == len(I) - 1) & np.isfinite(det)
+                & (np.abs(det) >= np.float32(2.0 ** 126)))
+    return accel, ot, od, len(I) - 1, float(X), slow_hit
+
+
+def test_smem_walk_slow_reciprocal_scene(slow_reciprocal_scene):
+    """The planted scene exercises P1's IEEE redo: many rays' nearest hit
+    is the huge triangle at |det| >= 2^126, in warps (32 rays in order)
+    whose other lanes do not need it; the plain walk finds those hits at
+    the plane's distance (float64), so its subnormal 1 / det is kept."""
+    accel, o, d, huge, X, slow_hit = slow_reciprocal_scene
+    assert slow_hit.sum() >= 200
+    warps = slow_hit[:4096].reshape(-1, 32)
+    assert (warps.any(axis=1) & ~warps.all(axis=1)).sum() >= 64
+    t, tri = tp1.smem_nearest(o, d, accel, accel.n_wide)
+    o64, d64 = o.double().numpy(), d.double().numpy()
+    want = (X - o64[slow_hit, 0]) / d64[slow_hit, 0]
+    np.testing.assert_allclose(t.numpy()[slow_hit], want, rtol=1e-5)
+    assert (tri.numpy()[slow_hit] == huge).all()
+
+
+# The flagship's level starts (65,024 triangles, SAH leaf 8: 5,574
+# records), as r3_smem_proto prints them on the card.
+FLAGSHIP_LEVEL_STARTS = [0, 1, 5, 21, 85, 341, 1365, 4684, 5508, 5570,
+                         5574]
+
+
+def _layout(n_staged, cluster=None, n_rep=None):
+    """Each block's records in slot order, by `home`, for a plan (or a
+    forced cluster / replication); checks that every record lands once
+    (the replicated prefix once in every block, at its id), that slots run
+    from 0 without a gap, and that each block fits its shared memory."""
+    _, cluster, n_rep = tp1.shape(n_staged, None, cluster, n_rep)
+    held = [{} for _ in range(cluster)]
+    for rec in range(n_staged):
+        blk, slot = tp1.home(rec, n_rep, cluster)
+        for b in range(cluster) if blk is None else [blk]:
+            assert slot not in held[b]
+            held[b][slot] = rec
+    for b, slots in enumerate(held):
+        assert sorted(slots) == list(range(len(slots)))
+        assert len(slots) == tp1.block_count(n_staged, n_rep, cluster, b)
+        assert [slots[k] for k in range(n_rep)] == list(range(n_rep))
+        assert (len(slots) * tp1.RECORD_BYTES + tp1.BARRIER_BYTES
+                <= tp1.MAX_SHARED_BYTES == 232_448)
+    owned = sorted(r for slots in held for k, r in slots.items()
+                   if k >= n_rep)
+    assert owned == list(range(n_rep, n_staged))
+    return cluster, n_rep
+
+
+def test_smem_layout(port_tables):
+    """The record -> (block, slot) layout: the test scene's prefixes in
+    one block; the flagship's level ends (given as numbers, not built) in
+    one block up to levels 0-5, the rest and the whole table over 4 blocks
+    with levels 0-4 in each (211 KB a block); forced clusters of 2, 4, 8;
+    the largest table 8 blocks hold, and one record more refused."""
+    for n in tp1.staged_prefixes(port_tables):
+        assert _layout(n) == (1, n)
+    B = tp1.BLOCK_RECORDS
+    assert B == 1815
+    for n in FLAGSHIP_LEVEL_STARTS[1:]:
+        assert _layout(n) == ((1, n) if n <= 1365 else (4, 341))
+    assert tp1.block_count(5574, 341, 4) == 1650  # 211,208 B with the barrier
+    for n, cluster in ((3000, 2), (5574, 4), (5574, 8)):
+        for n_rep in (0, 1, 341):
+            assert _layout(n, cluster, n_rep) == (cluster, n_rep)
+    assert _layout(2 * B) == (2, 0)
+    assert _layout(8 * B) == (8, 0)
+    with pytest.raises(ValueError):
+        tp1.plan(8 * B + 1)
+    for bad in (dict(block=128, cluster=4), dict(cluster=2),
+                dict(cluster=3), dict(cluster=16), dict(block=512),
+                dict(cluster=4, n_rep=5575), dict(cluster=2, n_rep=0)):
+        with pytest.raises(ValueError):
+            tp1.shape(5574, **bad)
+    with pytest.raises(ValueError):
+        tp1.shape(10, cluster=1, n_rep=5)
+    assert tp1.shape(5574) == (1024, 4, 341)
+    assert tp1.shape(85) == (128, 1, 85)
+    assert tp1.grid(126_621, 1024, 4) == 124
+    assert tp1.grid(4097, 1024, 4) == 8
+    modes = tp1.modes(port_tables)
+    assert modes == [(n, b) for n in tp1.staged_prefixes(port_tables)
+                     for b in tp1.BLOCKS]
 
 
 # --- on the card: each kernel against its plain version, bit for bit ---
@@ -623,12 +794,95 @@ def test_interleave2_c_side_refuses_grid(cuda):
 
 
 @pytest.mark.cuda
-def test_smem_walk_kernel_exact(cuda, port_tables):
+@pytest.mark.parametrize("cluster, n_rep", [
+    (None, None), (2, 0), (2, 1), (4, 5), (8, 0), (8, 21)])
+def test_smem_walk_kernel_exact(cuda, port_tables, cluster, n_rep):
+    """P1 equals the plain walk bit for bit in every mode (through
+    `smem_nearest`), and in forced cluster sizes and replications at every
+    prefix (through `launch`), on 16² rays and on 4,097 rays, which leave
+    the last cluster's last block mostly past n_rays."""
     acc = port_tables.to(cuda)
     ot, od = (x.to(cuda) for x in _primary_rays())
-    pt, pi = tp1.smem_nearest_reference(ot, od, acc)
-    for block in tp1.BLOCKS:
-        for n_staged in tp1.staged_prefixes(acc) + [acc.n_wide]:
-            t, tri = tp1.smem_nearest(ot, od, acc, n_staged, block)
-            torch.cuda.synchronize()
+    rng = np.random.default_rng(3)
+    streams = [(ot, od), tuple(torch.as_tensor(
+        rng.normal(size=(4097, 3)).astype(np.float32), device=cuda)
+        for _ in range(2))]
+    for o, d in streams:
+        pt, pi = tp1.smem_nearest_reference(o, d, acc)
+        if cluster is None:
+            runs = [tp1.smem_nearest(o, d, acc, s, b)
+                    for s, b in tp1.modes(acc)]
+        else:
+            runs = [tp1.launch(o, d, acc, s, None, cluster,
+                               min(n_rep, s))
+                    for s in tp1.staged_prefixes(acc)]
+        torch.cuda.synchronize()
+        for t, tri in runs:
             assert torch.equal(t, pt) and torch.equal(tri, pi)
+
+
+@pytest.mark.cuda
+def test_smem_walk_slow_reciprocal_exact(cuda, slow_reciprocal_scene):
+    """P1's IEEE redo: on the planted scene, where the fast reciprocal
+    alone would miss the huge triangle on the rays of `slow_hit`, P1 in
+    every mode and in forced clusters of 2, 4 and 8 equals the plain walk
+    and K1 lane bit for bit."""
+    from dpt_tpu_torch.kernels import quad
+
+    accel, o, d, huge, _, slow_hit = slow_reciprocal_scene
+    acc, o, d = accel.to(cuda), o.to(cuda), d.to(cuda)
+    pt, pi = tp1.smem_nearest_reference(o, d, acc)
+    kt, ki = quad._launch(o, d, None, acc, False, "lane")
+    assert torch.equal(pi.cpu()[torch.as_tensor(slow_hit)],
+                       torch.full((int(slow_hit.sum()),), huge,
+                                  dtype=torch.int32))
+    runs = [tp1.smem_nearest(o, d, acc, s, b) for s, b in tp1.modes(acc)]
+    runs += [tp1.launch(o, d, acc, s, None, cluster, min(n_rep, s))
+             for cluster, n_rep in ((2, 0), (4, 5), (8, 1))
+             for s in tp1.staged_prefixes(acc)]
+    torch.cuda.synchronize()
+    assert torch.equal(kt, pt) and torch.equal(ki, pi)
+    for t, tri in runs:
+        assert torch.equal(t, pt) and torch.equal(tri, pi)
+
+
+@pytest.mark.cuda
+def test_smem_walk_rcp_exhaustive(cuda):
+    """The leaf test's reciprocal equals 1.0f / x on every float32 of its
+    input range (|x| >= 1e-6, both signs, inf and NaN)."""
+    rcp = tp1.rcp_check(cuda)
+    assert rcp["tested"] == rcp["expected"] > 2 ** 31
+    assert rcp["differing"] == 0
+    assert 0 < rcp["fast"] < rcp["tested"]
+
+
+@pytest.mark.cuda
+def test_smem_walk_c_side_refuses(cuda, port_tables):
+    """The C launch refuses a grid that does not cover each ray once in
+    whole clusters, a shape it is not built for ((1, 1271) and (129, -9)
+    included), a split it cannot hold and a table beyond 8 blocks:
+    cudaErrorInvalidValue (1)."""
+    from dpt_tpu_torch.kernels.build import load_probe_library
+
+    lib = load_probe_library()
+    acc = port_tables.to(cuda)
+    ot, od = (x.to(cuda) for x in _primary_rays())
+    R = ot.shape[0]  # 256 rays
+    out_t = torch.empty(R, device=cuda)
+    out_i = torch.empty(R, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    B = tp1.BLOCK_RECORDS
+    n = acc.n_wide
+    for n_staged, n_rep, threads, cluster, blocks in (
+            (0, 0, 128, 1, 1), (0, 0, 128, 1, 3), (n, n, 1024, 1, 2),
+            (n, 0, 1024, 2, 1), (n, 0, 1024, 2, 4), (n, 0, 1024, 4, 2),
+            (n, n, 256, 1, 1), (n, 0, 128, 2, 2), (n, 0, 1024, 16, 16),
+            (n, 0, 1024, 3, 3), (n, 0, 1024, 1, 1), (n, n + 1, 1024, 2, 2),
+            (8 * B + 1, 0, 1024, 8, 8), (2 * B + 2, 0, 1024, 2, 2),
+            (B + 1, B + 1, 1024, 1, 1), (0, 0, 1, 1271, 1271),
+            (0, 0, 129, -9, 0)):
+        err = lib.dpt_quad_traverse_smem(
+            ot.data_ptr(), od.data_ptr(), acc.nodes_flat.data_ptr(),
+            acc.tris.data_ptr(), R, n_staged, n_rep, threads, cluster,
+            blocks, out_t.data_ptr(), out_i.data_ptr(), stream)
+        assert err == 1, (n_staged, n_rep, threads, cluster, blocks)
