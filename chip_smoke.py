@@ -332,15 +332,28 @@ DESIGNS = {
         "stacks in shared memory; A's and D's work issued while the words "
         "travel; a sink [P, 3] of final sp, top and the mt8 ok count summed "
         "into rank 0 through distributed shared memory"),
-    **dict.fromkeys(("gather_axis1", "crossbar_sublane", "crossbar_fused"), (
-        "one block of 1024 threads, one per tile element; the tile (and C's "
-        "lane table) in shared memory, index and sum in registers")),
+    **dict.fromkeys(("gather_axis1", "crossbar_sublane"), (
+        "one block of 1024 threads, one per tile element; the tile in "
+        "shared memory, index and sum in registers")),
+    "crossbar_fused": (
+        "32 blocks of one warp, one thread per tile element; all of x "
+        "copied once a shared-memory bank (128 KB dynamic: lane l reads "
+        "word w at w * 32 + l, always bank l, one wavefront a lookup), the "
+        "block's 32 columns of the lane table plain (bank l already); two "
+        "shared loads a step (the lane table's volatile), 8 steps' lookups "
+        "in flight, each loaded beside an add of the 8 before, the sum in "
+        "the order of k"),
     "gather_axis0": (
         "one block of 1024 threads, 8 elements each; the [64, 128] tile "
         "(32 KB) in shared memory"),
     "crossbar_lanes": (
-        "one block of 1024 threads; the K tiles x + q in dynamic shared "
-        "memory (K x 4 KB), K loads a step, K a template argument"),
+        "8 blocks of 128 threads, a tile row each, one thread per tile "
+        "element; the row of each of the K tiles x + q copied once a "
+        "shared-memory bank (K x 16 KB dynamic, and the row's first U - 1 "
+        "words again: one wavefront a lookup), K loads a step from K "
+        "tiles, a group of U = 32 / K steps (1 at K = 12) read from one "
+        "base, each lookup of the next group loaded beside an add of this "
+        "one; K a template argument"),
     "crossbar_rows": (
         "one block of 1024 threads; the 2 MB table in device memory and L2, "
         "the row starts staged in shared memory 1,024 at a time, 8 steps' "
@@ -2206,8 +2219,9 @@ def phase_primitives(device):
         if "latency_bound_ms" in m:
             e["latency_bound_ms"] = m["latency_bound_ms"]
             e["cycles_per_op"] = m["cycles_per_op"]
-            e["own_cycles_per_op"] = own
             e["bound_share"] = m["share"]
+        if key == "crossbar_math":
+            e["own_cycles_per_op"] = own
         print(f"[{tag}] {name} ({ln.label}): {e['ms']:.4f} ms (kernel "
               f"{e['kernel_ms']:.4f}, plain {e['plain_ms']:.3f}, library "
               f"{e['library_ms']}, bound {e['bound_ms']:.6f} by "
@@ -2217,9 +2231,11 @@ def phase_primitives(device):
                  if ln.steps > 1 else "")
               + (f"; the chain's latency bound {e['latency_bound_ms']:.4f} "
                  f"ms at the card's {e['cycles_per_op']:.4f} clocks an "
-                 f"operation (its own chain {own:.4f}), "
-                 f"{100 * e['bound_share']:.3g}% of the kernel against the "
-                 "larger bound" if "latency_bound_ms" in e else "") + ")",
+                 "operation" + (f" (its own chain {own:.4f})"
+                                if key == "crossbar_math" else "")
+                 + f", {100 * e['bound_share']:.3g}% of the kernel against "
+                 "the larger bound" if "latency_bound_ms" in e else "")
+              + ")",
               flush=True)
         if key == "crossbar_lanes":  # one entry, K = 12's numbers
             first = entries.setdefault(key, {})

@@ -153,8 +153,8 @@ def time_launches(launches, n=20, cycles_per_op=None):
 
 def print_launches(probe, launches, timed, card, **extra):
     """A primitive probe's lines (the TPU probe's, ns a step beside the
-    bound of the one SM that runs the block) and its JSON line (with
-    `extra`)."""
+    bound of one SM doing all of the launch's work and, for a chain, the
+    chain's latency bound) and its JSON line (with `extra`)."""
     import json
 
     import torch
@@ -164,12 +164,14 @@ def print_launches(probe, launches, timed, card, **extra):
             print(f"{launches[name].label}: {m['kernel_ms'] * 1e3:.2f} us a "
                   f"launch (bound {m['bound_ms'] * 1e3:.5f} us)", flush=True)
             continue
-        bound = (f"the chain's latency bound {m['latency_bound_ms']:.4f} ms "
-                 f"at the card's {m['cycles_per_op']:.4f} clocks an "
-                 f"operation, {100 * m['share']:.3g}% of the kernel; its own "
-                 f"chain {m.get('own_cycles_per_op', float('nan')):.4f}"
-                 if "latency_bound_ms" in m else
-                 f"its SM's bound {m['sm_bound_ns_per_step']:.1f} ns a step")
+        bound = f"one SM's bound {m['sm_bound_ns_per_step']:.1f} ns a step"
+        if "latency_bound_ms" in m:
+            bound += ("; the chain's latency bound "
+                      f"{m['latency_bound_ms']:.4f} ms at the card's "
+                      f"{m['cycles_per_op']:.4f} clocks an operation, "
+                      f"{100 * m['share']:.3g}% of the kernel")
+        if "own_cycles_per_op" in m:
+            bound += f"; its own chain {m['own_cycles_per_op']:.4f}"
         print(f"{launches[name].label}: {m['ns_per_step']:9.1f} ns a step "
               f"({m['kernel_ms']:.4f} ms a launch, {m['steps']} steps; "
               f"{bound})", flush=True)

@@ -24,14 +24,20 @@ x is f32 [8, 128], sub / idx / lane / srow int32 [8, 128]; % is floor mod.
 CUDA tensors launch the kernel; CPU tensors run the `*_reference`
 functions, the same steps as torch ops (bit for bit on the card).
 
+B runs in 8 blocks of 128 threads (a tile row each) and C in 32 blocks of
+one warp, each warp reading a table copied once a shared-memory bank, so
+that every lookup is one wavefront whatever the indices; `index_patterns`
+makes the index tiles the kernels are timed on (seeded, one bank,
+identity).
+
     python -m dpt_tpu_torch.probes.probe_crossbar
 
 prints the TPU probe's lines on the card (ns a gather, step or load of each
-kernel beside the bound of the one SM that runs its block; E, spread over
-32 one-warp blocks, beside its chain's latency bound at the card's clocks
-a dependent operation, which `op_cycles` reads from a bare chain apart
-from E's code, with E's own clocks an operation from `chain_cycles`
-beside them), the card's name and power limit and one JSON line.
+kernel beside the bound of one SM doing all its work, and beside its
+chain's latency bound at the card's clocks a dependent operation, which
+`op_cycles` reads from a bare chain apart from the kernels' code, with E's
+own clocks an operation from `chain_cycles`), the card's name and power
+limit and one JSON line.
 """
 
 from __future__ import annotations
@@ -59,6 +65,9 @@ CHAIN_OPS = 2 * MATH_OPS + 1
 OP_CHAIN_STEPS = 125
 OP_CHAIN_PAIRS = 512  # crossbar.cu kChainPairs
 TIMED_LAUNCHES = 20
+# The index tiles B and C are timed on: the TPU probe's draw, a tile
+# whose warps read one bank at every step, and the identity.
+PATTERNS = ("seeded", "one_bank", "identity")
 # Each element's operations a step, as the TPU probe spells them: an index
 # add and floor mod (two int32 operations) for each lookup index, a
 # shared-memory word for each lookup, a float add for each sum.  D's row
@@ -77,6 +86,29 @@ def lanes_step_ops(K):
     bit for bit, so the function is one word, its index and 2K float adds
     (the kernel keeps the TPU probe's K lookups, and is held to this)."""
     return {"i32": 2, "lds": 1, "f32": 2 * K}
+
+
+def index_patterns(rng):
+    """pattern -> {"idx", "lane", "srow"}, int32 [8, 128] numpy tiles (B
+    takes idx, C lane and srow): "seeded", drawn as the TPU probe draws
+    them (C takes idx as lane, as the probe does); "one_bank", where at
+    every step a warp's 32 lanes read distinct words of one bank of an
+    uncopied table (B: 4 words of its row, (idx + k) % 32 the same for all
+    lanes; C: 32 words of x, 8 rows by srow = c % 8 times 4 columns); and
+    "identity" (idx = lane = c, srow = r), a warp's reads consecutive."""
+    rows, cols = np.meshgrid(np.arange(ROWS), np.arange(LANES),
+                             indexing="ij")
+    # 32 banks of a word: column c is lane c % 32 of warp c // 32 of its row
+    one_bank = (32 * (cols % 32 // 8) + 5 * (cols // 32) + 3) % LANES
+    seeded = rng.integers(0, LANES, (ROWS, LANES), dtype=np.int32)
+    tiles = {
+        "seeded": (seeded, rng.integers(0, ROWS, (ROWS, LANES))),
+        "one_bank": (one_bank, cols % ROWS),
+        "identity": (cols, rows),
+    }
+    return {name: {"idx": t.astype(np.int32), "lane": t.astype(np.int32),
+                   "srow": s.astype(np.int32)}
+            for name, (t, s) in tiles.items()}
 
 
 def sublane_gather_reference(x, sub, iters):
@@ -266,7 +298,8 @@ def launches(a, iters=ITERS):
     """kernel -> `probes.Launch` at the inputs `a` (tensors, as `inputs`
     draws them) and ITERS = `iters`, each through its public wrapper as the
     TPU probe runs it (C takes idx as `lane` and sub as `srow`, as the probe
-    does; D the first `iters` rows)."""
+    does; D the first `iters` rows).  Each loop's chain: one dependent
+    add a step of each element's sum (B: K), E's CHAIN_OPS."""
     tile = ROWS * LANES
     x, idx, sub, tab = a["x"], a["idx"], a["sub"], a["tab"]
     rows = a["rows"][:iters]
@@ -280,25 +313,25 @@ def launches(a, iters=ITERS):
             "a) axis-0 [8,128] gather",
             lambda: sublane_gather(x, sub, iters),
             lambda: sublane_gather_reference(x, sub, iters),
-            iters, ops(STEP_OPS["sublane"], iters), 12 * tile),
+            iters, ops(STEP_OPS["sublane"], iters), 12 * tile, 1),
         **{f"crossbar_lanes_K{K}": probes.Launch(
             f"b) {K:2d} axis-1 gathers/iter",
             lambda K=K: lane_gathers(x, idx, K, iters),
             lambda K=K: lane_gathers_reference(x, idx, K, iters // K),
-            iters // K, ops(lanes_step_ops(K), iters // K), 12 * tile)
+            iters // K, ops(lanes_step_ops(K), iters // K), 12 * tile, K)
            for K in KS},
         "crossbar_fused": probes.Launch(
             "c) fused 1024-lookup",
             lambda: fused_lookup(x, idx, sub, iters),
             lambda: fused_lookup_reference(x, idx, sub, iters),
-            iters, ops(STEP_OPS["fused"], iters), 16 * tile),
+            iters, ops(STEP_OPS["fused"], iters), 16 * tile, 1),
         # the distinct row blocks read, the rows, the output
         "crossbar_rows": probes.Launch(
             "d) dyn [8,128] row-block load",
             lambda: row_blocks(tab, rows),
             lambda: row_blocks_reference(tab, rows),
             iters, ops(STEP_OPS["rows"], iters),
-            4 * tile * n_blocks + 4 * iters + 4 * tile),
+            4 * tile * n_blocks + 4 * iters + 4 * tile, 1),
         "crossbar_math": probes.Launch(
             "e) 70 fused vector ops",
             lambda: vector_ops(x, iters),

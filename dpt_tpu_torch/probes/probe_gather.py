@@ -23,8 +23,10 @@ Counterpart of `scripts/attic/probe_gather.py`:
     python -m dpt_tpu_torch.probes.probe_gather
 
 prints the TPU probe's lines on the card (the torch gathers, then ns a
-gather of each kernel beside the bound of the one SM that runs its block),
-the card's name and power limit and one JSON line.
+gather of each kernel beside the bound of the one SM that runs its block
+and its chain's latency bound at the card's clocks a dependent operation,
+`probe_crossbar.op_cycles`), the card's name and power limit and one JSON
+line.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from dpt_tpu_torch import probes
+from dpt_tpu_torch.probes import probe_crossbar
 
 LANES = 128
 ITERS_AXIS1 = 1000
@@ -101,7 +104,8 @@ def inputs(rng):
 
 def launches(x, idx, x0, idx0, iters=None):
     """The two kernels' `probes.Launch` records at the inputs (tensors),
-    each at the TPU probe's steps (1000, 100) or at `iters`."""
+    each at the TPU probe's steps (1000, 100) or at `iters`; each
+    element's sum is a chain of one dependent add a step."""
     out = {}
     for name, fn, ref, args, label, steps in (
             ("gather_axis1", axis1_gather, axis1_gather_reference, (x, idx),
@@ -113,7 +117,7 @@ def launches(x, idx, x0, idx0, iters=None):
         out[name] = probes.Launch(
             label, lambda fn=fn, args=args, k=steps: fn(*args, k),
             lambda ref=ref, args=args, k=steps: ref(*args, k), steps,
-            {k: v * n * steps for k, v in STEP_OPS.items()}, 12 * n)
+            {k: v * n * steps for k, v in STEP_OPS.items()}, 12 * n, 1)
     return out
 
 
@@ -185,9 +189,14 @@ def main():
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     torch_rows = xla_gather_probe(dev)
-    lns = launches(*(torch.as_tensor(a, device=dev)
-                     for a in inputs(np.random.default_rng(0))))
-    timed = probes.time_launches(lns, TIMED_LAUNCHES)
+    a = [torch.as_tensor(t, device=dev)
+         for t in inputs(np.random.default_rng(0))]
+    lns = launches(*a)
+    cycles, ends = probe_crossbar.op_cycles(a[0])
+    if not torch.equal(ends.cpu(), probe_crossbar.op_chain_reference(
+            a[0].cpu())):
+        sys.exit("the bare chain differs from its plain version")
+    timed = probes.time_launches(lns, TIMED_LAUNCHES, cycles)
     for name, m in timed.items():
         lookups = lns[name].ops["lds"] / lns[name].steps
         m["glane_lookups_per_s"] = lookups / m["ns_per_step"]

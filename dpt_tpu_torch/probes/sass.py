@@ -1,13 +1,15 @@
 """The step loops of a built probe library's kernels in the machine code
 (`cuobjdump -sass`), for the scripts that count a step's instructions
 (scripts/torch_interleave_shapes.py, scripts/torch_interleave2_shapes.py,
-and P1's leaf loop in `python -m dpt_tpu_torch.probes.r3_smem_proto
---sass`).
+scripts/torch_crossbar_shapes.py, and P1's leaf loop in `python -m
+dpt_tpu_torch.probes.r3_smem_proto --sass`).
 
-A kernel's step loop is its backward branch that spans the most global
-loads (LDG): each step of a probe loads its record (and leaf row), and the
-loops around it (set-up, the exit's merge) load less or nothing.  A leaf
-loop is the innermost such loop.
+A kernel's step loop is its backward branch that spans the most loads of
+one kind: global loads (LDG) for the walks, each step of which loads its
+record (and leaf row) while the loops around it (set-up, the exit's merge)
+load less or nothing; shared loads (LDS) for P4's lane lookups, whose
+tables are filled before the loop by stores alone.  A leaf loop is the
+innermost such loop.
 """
 
 from __future__ import annotations
@@ -31,11 +33,13 @@ def opcode(text: str) -> str:
     return text.split()[1 if text.startswith("@") else 0]
 
 
-def step_loops(text: str, kernel: str, innermost=False):
+def step_loops(text: str, kernel: str, innermost=False, loads=("LDG",)):
     """[(match, opcodes)] for each function of the listing `text` whose
     name matches the regex `kernel` (the match of its first line) and that
-    has a backward branch over a global load: the opcodes of its step loop,
-    from the branch's target to the branch, in order.  With `innermost`,
+    has a backward branch over a load whose opcode starts with one of
+    `loads` (global loads by default, ("LDS",) for shared ones): the
+    opcodes of its step loop, from the branch's target to the branch, in
+    order.  With `innermost`,
     only loops that hold no other backward branch count, and of two with as
     many loads the shorter wins: a walk's leaf loop (P1's leaf rows, whose
     redo with the IEEE reciprocal is a second, longer loop over the same
@@ -71,7 +75,8 @@ def step_loops(text: str, kernel: str, innermost=False):
                      if not any(j <= a and b < k for a, b in loops)]
         best, best_loads = None, 0
         for j, k in loops:
-            n = sum(opcode(t).startswith("LDG") for _, t in instrs[j:k + 1])
+            n = sum(opcode(t).startswith(tuple(loads))
+                    for _, t in instrs[j:k + 1])
             if n > best_loads or (innermost and best is not None and n ==
                                   best_loads and k - j < best[1] - best[0]):
                 best, best_loads = (j, k), n

@@ -380,11 +380,161 @@ def test_share_against_the_larger_bound():
     # a latency under the operations bound leaves the share to the latter
     low = probes.launch_bounds(math, 1.1825, 0.01)
     assert low["share"] == pytest.approx(low["bound_ms"] / 1.1825)
-    for name, ln in lns.items():
-        if name != "crossbar_math":
-            m = probes.launch_bounds(ln, 0.1, 4.0)
-            assert ln.chain_ops == 0 and "latency_bound_ms" not in m
-            assert m["share"] == pytest.approx(m["bound_ms"] / 0.1)
+    # every other loop row is a chain of one dependent add a step of each
+    # element's sum (B: K adds a step), its latency bound the steps x chain
+    # x 4.0 clocks at 1.98 GHz, the larger bound at these rows' kernel times
+    g = {k: torch.as_tensor(v)
+         for k, v in zip(("x", "idx", "x0", "idx0"),
+                         tp3.inputs(np.random.default_rng(0)))}
+    rows = {**{n: ln for n, ln in lns.items() if n != "crossbar_math"},
+            **tp3.launches(g["x"], g["idx"], g["x0"], g["idx0"])}
+    chains = {"crossbar_sublane": (2000, 1), "crossbar_lanes_K1": (2000, 1),
+              "crossbar_lanes_K4": (500, 4), "crossbar_lanes_K12": (166, 12),
+              "crossbar_fused": (2000, 1), "crossbar_rows": (2000, 1),
+              "gather_axis1": (1000, 1), "gather_axis0": (100, 1)}
+    assert sorted(rows) == sorted(chains)
+    for name, ln in rows.items():
+        steps, chain = chains[name]
+        assert (ln.steps, ln.chain_ops) == (steps, chain), name
+        m = probes.launch_bounds(ln, 0.1, 4.0)
+        want = steps * chain * 4.0 / 1.98e9 * 1e3
+        assert m["latency_bound_ms"] == pytest.approx(want, rel=1e-12)
+        assert m["latency_bound_ms"] > m["bound_ms"], name
+        assert m["share"] == pytest.approx(want / 0.1)
+        # without the card's clocks only the card's bound is taken
+        m = probes.launch_bounds(ln, 0.1)
+        assert "latency_bound_ms" not in m
+        assert m["share"] == pytest.approx(m["bound_ms"] / 0.1)
+    # P4-c: 2,000 adds x 4 clocks at 1.98 GHz; P4-b at K = 12, 1,992
+    assert probes.launch_bounds(rows["crossbar_fused"], 0.1, 4.0)[
+        "latency_bound_ms"] == pytest.approx(2000 * 4 / 1.98e9 * 1e3)
+    assert probes.launch_bounds(rows["crossbar_lanes_K12"], 0.1, 4.0)[
+        "latency_bound_ms"] == pytest.approx(1992 * 4 / 1.98e9 * 1e3)
+
+
+# B's and C's layout on the card, mirrored from crossbar.cu (`fill_copies`,
+# `LanesGroup`, kBanks, kGroupLoads, kFusedThreads) for the CPU test below;
+# the card tests hold the kernels themselves.
+BANKS = 32
+GROUP_LOADS = 32
+FUSED_THREADS = 32
+
+
+def _replica_offset(word, lane):
+    """The float offset that `lane` reads `word` at in a table copied once
+    a bank: word * 32 + lane % 32, always in bank lane % 32."""
+    return word * BANKS + lane % BANKS
+
+
+def _bank_copies(table):
+    """The table the kernel builds from `table` (its last dimension the
+    words): each word BANKS times, in the order of `_replica_offset`."""
+    return table.unsqueeze(-1).expand(*table.shape, BANKS).reshape(
+        *table.shape[:-1], -1)
+
+
+def _lanes_group(K):
+    """B's steps a group: 32 // K, and 1 at K = 12."""
+    return 1 if K > 4 else GROUP_LOADS // K
+
+
+def _lanes_copies(x, K):
+    """B's table of each row of x: the row's words copied once a bank, then
+    its first _lanes_group(K) - 1 words again, so that a group's step u
+    reads word j + u of it where j is the group's first word; [rows, (128
+    + U - 1) * 32]."""
+    return _bank_copies(torch.cat([x, x[:, :_lanes_group(K) - 1]], dim=1))
+
+
+def _lanes_words(idx, k):
+    """B: the word of its row each element looks up at step k, (idx + k) %
+    128 (the sum wrapping in int32, as in JAX)."""
+    return torch.remainder(idx + k, tp4.LANES)
+
+
+def _fused_words(lane, srow, k):
+    """C: the word of x (flat) each element looks up at step k: s * 128 +
+    (lane[s, c] + k) % 128, s = (srow + k) % 8."""
+    s = torch.remainder(srow + k, tp4.ROWS).long()
+    cols = torch.arange(tp4.LANES, device=lane.device).expand(tp4.ROWS,
+                                                              tp4.LANES)
+    return s * tp4.LANES + torch.remainder(lane[s, cols] + k,
+                                           tp4.LANES).long()
+
+
+def _wrap_tiles(rng):
+    """Index tiles near +-2^31 (B's idx, C's lane and srow), whose sums
+    with k wrap in int32."""
+    def tile():
+        near = rng.integers(0, 64, (tp4.ROWS, tp4.LANES))
+        return np.where(rng.random((tp4.ROWS, tp4.LANES)) < 0.5,
+                        2**31 - 1 - near, -2**31 + near).astype(np.int32)
+
+    idx = tile()
+    return {"idx": idx, "lane": idx, "srow": tile()}
+
+
+def _lookup_tiles(rng, pattern):
+    if pattern == "wrap":
+        return _wrap_tiles(rng)
+    return tp4.index_patterns(rng)[pattern]
+
+
+@pytest.mark.parametrize("pattern", [*tp4.PATTERNS, "wrap"])
+def test_bank_copies_make_every_lookup_one_wavefront(pattern):
+    """B's and C's layout as crossbar.cu builds it (each table copied once
+    a bank, B's rows followed by their first U - 1 words again for its
+    groups of U steps): a lookup through the copies equals the direct lookup,
+    and at every step a warp's 32 lanes read 32 distinct banks, in the
+    copies and in C's lane table.  On the one-bank tiles the uncopied table
+    puts a warp's lanes on one bank at every step, on 4 distinct words of
+    B's row and 32 of C's x.  The words are the plain versions' (summed
+    over the steps they give lane_gathers_reference and
+    fused_lookup_reference), wrapping as int32 sums do."""
+    rng = np.random.default_rng(31)
+    x = torch.as_tensor(rng.normal(size=(tp4.ROWS, tp4.LANES))
+                        .astype(np.float32))
+    t = {k: torch.as_tensor(v) for k, v in _lookup_tiles(rng, pattern).items()}
+    lane = torch.arange(tp4.ROWS * tp4.LANES).reshape(tp4.ROWS, tp4.LANES)
+    lane = lane % BANKS  # each element's lane in its warp
+    rows = {K: _lanes_copies(x, K) for K in tp4.KS}
+    assert rows[1].shape == (tp4.ROWS, (tp4.LANES + 31) * BANKS)
+    assert rows[12].shape == (tp4.ROWS, tp4.LANES * BANKS)
+    flat = _bank_copies(x.reshape(-1))
+    acc_b, acc_c = torch.zeros_like(x), torch.zeros_like(x)
+    for k in [*range(40), 127, 128, 1999, 2000]:
+        wb = _lanes_words(t["idx"], k).long()
+        want = (t["idx"].numpy().astype(np.int64) + k) % 2**32 % tp4.LANES
+        np.testing.assert_array_equal(wb.numpy(), want)
+        # B: step k is step u of a group whose first step reads word j
+        offs = []
+        for K in tp4.KS:
+            u = k % _lanes_group(K)
+            j = _lanes_words(t["idx"], k - u).long()
+            offs.append(_replica_offset(j + u, lane))
+            assert torch.equal(torch.gather(rows[K], 1, offs[-1]),
+                               torch.gather(x, 1, wb))
+        wc = _fused_words(t["lane"], t["srow"], k)
+        oc = _replica_offset(wc, lane)
+        assert torch.equal(flat[oc], x.reshape(-1)[wc])
+        # C's lane table (a warp a block): lane l reads row s at s * 32 + l
+        s = torch.remainder(t["srow"] + k, tp4.ROWS)
+        ol = s * FUSED_THREADS + lane
+        for off in (*offs, oc, ol):
+            banks = (off % BANKS).reshape(-1, 32).sort(dim=1).values
+            assert torch.equal(banks, torch.arange(32).expand(32, 32))
+        if pattern == "one_bank":
+            for w, n in ((wb, 4), (wc, 32)):
+                warps = w.reshape(-1, 32)
+                assert bool((warps % 32 == warps[:, :1] % 32).all())
+                assert {len(set(r.tolist())) for r in warps} == {n}
+        if k < 40:
+            for q in range(4):
+                acc_b = acc_b + torch.gather(x + float(q), 1, wb)
+            acc_c = acc_c + x.reshape(-1)[wc]
+    assert torch.equal(acc_b, tp4.lane_gathers_reference(x, t["idx"], 4, 40))
+    assert torch.equal(acc_c, tp4.fused_lookup_reference(x, t["lane"],
+                                                         t["srow"], 40))
 
 
 def test_op_chain_reference_rounds_each_operation():
@@ -557,3 +707,82 @@ def test_row_blocks_exact_on_card_off_the_unroll(cuda, n):
     torch.cuda.synchronize()
     assert probes.launch_counts["crossbar_rows"] == before + 1
     assert torch.equal(got, tp4.row_blocks_reference(tab, rows))
+
+
+LOOKUP_KERNELS = [*(f"crossbar_lanes_K{K}" for K in tp4.KS), "crossbar_fused"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [2000, 7, 2003])
+@pytest.mark.parametrize("pattern", [*tp4.PATTERNS, "wrap"])
+@pytest.mark.parametrize("kernel", LOOKUP_KERNELS)
+def test_lookup_kernel_exact_on_card(cuda, kernel, pattern, steps):
+    """P4-b (K = 1, 4, 12; 8 blocks of 128) and P4-c (32 blocks of one
+    warp), over tables copied once a bank, equal their plain versions bit
+    for bit, with one
+    launch counted: at 2,000 steps, at step counts off the unroll (7 and
+    2,003), on the seeded tile, the one-bank tile (a warp's lanes on
+    distinct words of one bank at every step), the identity and indices
+    near +-2^31 that wrap."""
+    rng = np.random.default_rng(25)
+    x = torch.as_tensor(rng.normal(size=(tp4.ROWS, tp4.LANES))
+                        .astype(np.float32), device=cuda)
+    t = {k: torch.as_tensor(v, device=cuda)
+         for k, v in _lookup_tiles(rng, pattern).items()}
+    name = kernel.split("_K")[0]
+    before = probes.launch_counts[name]
+    if name == "crossbar_lanes":
+        K = int(kernel.split("_K")[1])
+        got = tp4.lane_gathers(x, t["idx"], K, steps * K)
+        plain = tp4.lane_gathers_reference(x, t["idx"], K, steps)
+    else:
+        got = tp4.fused_lookup(x, t["lane"], t["srow"], steps)
+        plain = tp4.fused_lookup_reference(x, t["lane"], t["srow"], steps)
+    torch.cuda.synchronize()
+    assert probes.launch_counts[name] == before + 1
+    assert got.device.type == "cuda" and torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+def test_lookup_c_side_refuses(cuda):
+    """B's and C's C launches, each in its one grid, refuse a K not built
+    or a negative step count with cudaErrorInvalidValue (1), launching
+    nothing, and launch at a K built and 0 or more steps (an output then
+    equal to the plain version)."""
+    from dpt_tpu_torch.kernels.build import load_probe_library
+
+    lib = load_probe_library()
+    rng = np.random.default_rng(26)
+    x = torch.as_tensor(rng.normal(size=(tp4.ROWS, tp4.LANES))
+                        .astype(np.float32), device=cuda)
+    idx, srow = (torch.as_tensor(rng.integers(0, n, (tp4.ROWS, tp4.LANES),
+                                              dtype=np.int32), device=cuda)
+                 for n in (tp4.LANES, tp4.ROWS))
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def lanes(K, iters, out):
+        return lib.dpt_probe_crossbar_lanes(
+            x.data_ptr(), idx.data_ptr(), K, iters, out.data_ptr(), stream)
+
+    def fused(iters, out):
+        return lib.dpt_probe_crossbar_fused(
+            x.data_ptr(), idx.data_ptr(), srow.data_ptr(), iters,
+            out.data_ptr(), stream)
+
+    out = torch.full_like(x, float("nan"))
+    for K in (0, 2, 3, 5, 13, -4):
+        assert lanes(K, 10, out) == 1, K
+    for K in tp4.KS:
+        assert lanes(K, -1, out) == 1, K
+    assert fused(-1, out) == 1
+    torch.cuda.synchronize()
+    assert bool(out.isnan().all())  # nothing was launched
+    for K in tp4.KS:
+        for iters in (0, 10):
+            assert lanes(K, iters, out) == 0
+            torch.cuda.synchronize()
+            assert torch.equal(out, tp4.lane_gathers_reference(x, idx, K,
+                                                               iters))
+    assert fused(10, out) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, tp4.fused_lookup_reference(x, idx, srow, 10))

@@ -337,6 +337,44 @@ def test_sass_step_loop(kernel, innermost, want):
     assert sass.opcode("F2I.TRUNC.NTZ R7, R3") == "F2I.TRUNC.NTZ"
 
 
+# P4-b's kernel in the listing's layout: a fill loop of global loads and
+# shared stores, then its step loop of shared loads alone.
+_SASS_LDS = """
+        Function : _ZN12_GLOBAL__N_112lanes_kernelILi4EEEvPKfPKiiPf
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+.L_x_0:
+        /*0000*/                   LDG.E.CONSTANT R2, desc[UR4][R4.64] ;
+        /*0010*/                   STS.128 [R6], R8 ;
+        /*0020*/               @P0 BRA `(.L_x_0) ;
+        /*0030*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+.L_x_1:
+        /*0040*/                   IADD3 R3, R0, UR4, RZ ;
+        /*0050*/                   LDS R12, [R3] ;
+        /*0060*/                   LDS R13, [R3+0x4000] ;
+        /*0070*/                   FADD R14, R14, R12 ;
+        /*0080*/                   FADD R14, R14, R13 ;
+        /*0090*/               @P1 BRA `(.L_x_1) ;
+        /*00a0*/                   EXIT ;
+"""
+
+
+def test_sass_step_loop_by_shared_loads():
+    """Asked for shared loads, the step loop is the backward branch over
+    the most LDS (P4's lookups, whose tables a loop of global loads and
+    shared stores fills first); asked for global loads (the default), the
+    fill loop is taken."""
+    from dpt_tpu_torch.probes import sass
+
+    kernel = r"lanes_kernelILi(\d+)E"
+    found = [(m.groups(), [o.split(".")[0] for o in ops])
+             for m, ops in sass.step_loops(_SASS_LDS, kernel,
+                                           loads=("LDS",))]
+    assert found == [(("4",), ["IADD3", "LDS", "LDS", "FADD", "FADD",
+                               "BRA"])]
+    found = [ops for _, ops in sass.step_loops(_SASS_LDS, kernel)]
+    assert found == [["LDG.E.CONSTANT", "STS.128", "BRA"]]
+
+
 def _mt8_ok(trow, o, d):
     """Count of the probe's Möller–Trumbore tests of the tile rays against
     the 8 slots of one leaf row that are ok, in float32 numpy, in the
