@@ -155,12 +155,15 @@ printing one line or more:
                 clocks a dependent operation, read by a bare chain of
                 multiply-adds in one warp (equal to its plain version bit
                 for bit), and P4-e's first warp alone on one SM with its
-                own clocks an operation; then one timing line each
+                own clocks an operation; the step loops of P4-a and
+                P4-d in the probe library's machine code (cuobjdump):
+                one shared load a step for P4-a, no global load and a
+                bulk copy a step for P4-d; then one timing line each
                 (wrapper, kernel, plain, the library call where one
                 computes the same function, the bound, for the loops ns a
-                step beside the bound of one SM, and for P4-e, spread over
-                32 one-warp blocks, its chain's latency bound at the
-                card's clocks, its own beside them).
+                step beside the bound of one SM, and for each loop its
+                chain's latency bound at the card's clocks, P4-e's own
+                beside them).
  22. bench    — `dpt_tpu_torch.bench.main` in this process at full width:
                 the flagship default (1024², 65,024 triangles, 4
                 iterations), `--grad --iters 2` (tape), `--grad
@@ -332,9 +335,15 @@ DESIGNS = {
         "stacks in shared memory; A's and D's work issued while the words "
         "travel; a sink [P, 3] of final sp, top and the mt8 ok count summed "
         "into rank 0 through distributed shared memory"),
-    **dict.fromkeys(("gather_axis1", "crossbar_sublane"), (
+    "gather_axis1": (
         "one block of 1024 threads, one per tile element; the tile in "
-        "shared memory, index and sum in registers")),
+        "shared memory, index and sum in registers"),
+    "crossbar_sublane": (
+        "32 blocks of one warp, one thread per tile element; each block's "
+        "32 columns of x's 8 rows in shared memory (lane l's word of row j "
+        "at j * 32 + l, always bank l); B and C's step loop, one volatile "
+        "shared load a step, 8 steps' lookups in flight beside the adds, "
+        "the sum in the order of k"),
     "crossbar_fused": (
         "32 blocks of one warp, one thread per tile element; all of x "
         "copied once a shared-memory bank (128 KB dynamic: lane l reads "
@@ -355,9 +364,12 @@ DESIGNS = {
         "base, each lookup of the next group loaded beside an add of this "
         "one; K a template argument"),
     "crossbar_rows": (
-        "one block of 1024 threads; the 2 MB table in device memory and L2, "
-        "the row starts staged in shared memory 1,024 at a time, 8 steps' "
-        "loads in flight (unrolled by 8)"),
+        "32 blocks of one warp, 32 columns of a tile row each; the 2 MB "
+        "table in device memory and L2, each step's 128-byte slice "
+        "bulk-copied (cp.async.bulk from one elected lane) into a "
+        "shared-memory ring of 8 stages of 16 steps (an mbarrier a stage, "
+        "128 steps ahead, 16 KB), the slices' addresses computed a chunk "
+        "ahead: no global load in the step loop"),
     "crossbar_math": (
         "32 blocks of one warp, one thread per tile element, v in a "
         "register, 141 dependent operations a step (-fmad=false): the "
@@ -2116,6 +2128,42 @@ def source_line(name):
     raise SmokeFailure(f"{PRIMITIVE_FUNCTIONS[name]} not in {path}")
 
 
+def crossbar_step_loops(tag):
+    """P4-a's and P4-d's step loops in the probe library's machine code
+    (`probes.sass.loop_counts`): A's must load one shared word a step
+    (its lookup, not a value kept in a register), D's must hold no global
+    load and a bulk copy a step (its rows come by the copy engine)."""
+    from dpt_tpu_torch.kernels import build
+    from dpt_tpu_torch.probes import sass
+
+    text = sass.dump(build.library_path("libdpt_probes",
+                                        build._probe_sources()))
+    loops = {}
+    for key, fn, loads in (("crossbar_sublane", "sublane_kernel", ("LDS",)),
+                           ("crossbar_rows", "rows_kernel", ("FADD",))):
+        found = sass.loop_counts(text, fn, loads=loads)
+        require(len(found) == 1, f"[{tag}] {fn}: {len(found)} step loops "
+                "in the machine code, want 1")
+        c = found[0][1]
+        loops[key] = {"instructions_per_step": c["per_step"],
+                      "lds_per_step": c["lds_per_step"],
+                      "ldg_per_step": c["ldg_per_step"],
+                      "ublkcp_per_step": c["by_opcode"].get("UBLKCP", 0.0)}
+    a, d = loops["crossbar_sublane"], loops["crossbar_rows"]
+    require(a["lds_per_step"] == 1.0, f"[{tag}] crossbar_sublane's step "
+            f"loop: {a}, want one LDS a step")
+    require(d["ldg_per_step"] == 0.0 and d["ublkcp_per_step"] >= 1.0,
+            f"[{tag}] crossbar_rows' step loop: {d}, want no LDG and a "
+            "bulk copy (UBLKCP) a step")
+    print(f"[{tag}] machine code: crossbar_sublane's step loop "
+          f"{a['instructions_per_step']:.2f} instructions and "
+          f"{a['lds_per_step']:.2f} LDS a step; crossbar_rows' "
+          f"{d['instructions_per_step']:.2f} instructions, "
+          f"{d['ldg_per_step']:.2f} LDG and {d['ublkcp_per_step']:.2f} "
+          "UBLKCP a step", flush=True)
+    return loops
+
+
 def phase_primitives(device):
     """The primitive probes P3, P4, P7, P8 at the TPU scripts' steps: every
     kernel launched once through its public wrapper (the launch counts set
@@ -2189,6 +2237,7 @@ def phase_primitives(device):
           "multiply-adds, one warp); crossbar_math one warp alone on one "
           f"SM, {p4.ITERS} steps x {p4.CHAIN_OPS} dependent operations: "
           f"{own:.4f} clocks an operation", flush=True)
+    step_loops = crossbar_step_loops(tag)
 
     # Timing.
     library = library_calls(a4, device)
@@ -2222,6 +2271,8 @@ def phase_primitives(device):
             e["bound_share"] = m["share"]
         if key == "crossbar_math":
             e["own_cycles_per_op"] = own
+        if key in step_loops:
+            e["step_loop"] = step_loops[key]
         print(f"[{tag}] {name} ({ln.label}): {e['ms']:.4f} ms (kernel "
               f"{e['kernel_ms']:.4f}, plain {e['plain_ms']:.3f}, library "
               f"{e['library_ms']}, bound {e['bound_ms']:.6f} by "

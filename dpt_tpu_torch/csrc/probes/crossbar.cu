@@ -1,6 +1,6 @@
 // P4 on Hopper: the per-lane lookup primitives of scripts/probe_crossbar.py,
-// each a loop over one [8, 128] tile: A and D in one block, B over 8 SMs,
-// C and E over 32.
+// each a loop over one [8, 128] tile spread over SMs: A, C, D and E in 32
+// blocks of one warp, B in 8 blocks of 128.
 //
 // Replaces the five Pallas kernels of scripts/probe_crossbar.py, run by
 // `run_kernel` :30 (pallas_call :33) or `go_d` :109 (pallas_call :110),
@@ -20,21 +20,40 @@
 // JAX's answer).  P4-d's row block starts where JAX's `pl.ds(rows[k] * 8,
 // 8)` does (`dyn_start`).
 //
-// Design: A and D in one block of 1024 threads, one thread per tile
-// element; B in 8 blocks of 128, C and E in 32 blocks of one warp
-// (below).  A looks across
-// rows, beyond a warp shuffle, so x lives in shared memory.  D's table
+// A and D (`sublane_kernel`, `rows_kernel`).  The first port ran each in one
+// block of 1024 threads, one SM for the whole tile: A at that SM's issue of
+// 32 warps' index arithmetic and lookups (~66 clocks a step), D at 8 loads a
+// thread in flight from L2 (~42 ns a step, ~49 B a clock into one SM).  Now
+// block b of 32 holds elements b * 32 .. b * 32 + 31: tile row b / 4,
+// columns (b % 4) * 32 + lane.  A looks across rows, beyond a warp shuffle,
+// so each block copies its 32 columns of x's 8 rows (1 KB) into shared
+// memory, lane l's word of row j at j * 32 + l, always bank l: every lookup
+// is one wavefront with no copy a bank.  It runs B's and C's step loop
+// (`sum_steps`) with A's lookup alone: row (s0 + k) & 7 takes 8 values a
+// lane, so their 8 offsets are computed once, and each step still loads its
+// word by a volatile load (as C reads its lane table: the compiler would
+// otherwise keep the 8 words in registers and price no lookup).  D's table
 // (2 MB) does not fit in shared memory (227 KB at most): it stays in device
-// memory and L2, so each step is a 4 KB row block from L2 (one 512-byte row
-// per warp group), not the TPU's VMEM; rows are staged in shared memory
-// 1,024 at a time, and the step loop is unrolled by 8 (eight row blocks'
-// loads in flight, their adds in the order of k), so steps overlap (on an
-// H100 this form takes 42 ns a step where a broadcast load of rows[k] in
-// each unrolled step takes 76: probes/rows_ablation.py).  E keeps v in a
-// register: 141 dependent operations a step per element.  -fmad=false and
-// float literals (1.0001f, 0.5f) keep each multiply and add rounded apart,
-// as the plain version's; XLA contracts E's chain, so E is held to the JAX
-// probe within a rounding, and to the plain version bit for bit.
+// memory and L2, and each step of a block needs one contiguous 128-byte
+// slice of it, row start + b / 4, which one lane (elect.sync) asks the copy
+// engine for (cp.async.bulk, completion on an mbarrier) into a shared-memory
+// ring: kRowsGroup steps a stage on one mbarrier, kRowsStages stages (128
+// steps ahead, 16 KB).  The issuing lane takes each stage's addresses from
+// registers loaded a turn ahead, out of a chunk of 128 computed by the whole
+// block (rows * 8 wrapping in int32, clamped as `pl.ds` is), the rows of
+// the next chunk read while this one runs, so no step waits on a global
+// load.  The block waits on a stage's parity, loads its slices, hands the
+// slot back (one barrier) before it is refilled, and adds them in the order
+// of k; the last stage expects only the bytes it copies, and a copy that
+// never lands traps (mbar_wait).  No proxy fence orders the slot's reads
+// before its refill (the barrier does, as in CUTLASS's pipelines):
+// fence.proxy.async compiles to MEMBAR.ALL.CTA, which waits for the rows'
+// loads in flight at every stage.
+// E keeps v in a register: 141 dependent operations a step per element.
+// -fmad=false and float literals (1.0001f, 0.5f) keep each multiply and add
+// rounded apart, as the plain version's; XLA contracts E's chain, so E is
+// held to the JAX probe within a rounding, and to the plain version bit for
+// bit.
 //
 // B and C, the lane lookups (`lanes_kernel`, `fused_kernel`).  The first port
 // ran each in one block of 1024 threads: one SM's shared-memory pipe served
@@ -74,13 +93,22 @@
 // kernel's ~5.3 (scripts/torch_crossbar_shapes.py).  Each kernel has one grid,
 // B 8 blocks of 128 and C 32 blocks of 32, fixed in its entry point.
 //
-// What bounds A and D: one SM runs the block.  A needs one shared-memory
-// word per lookup per element (32 words a clock per SM) and two integer
-// operations for each index (64 a clock per SM); D 4 KB a step from L2.  E
-// in one block (the first port) was bound by its SM's issue of 1024 x 141
-// float operations a step (128 a clock: about 1,128 clocks a step); spread
-// as 32 blocks of one warp, one warp an SM, no SM's issue binds and the
-// chain's latency does: 141 dependent operations of ~4 clocks a step
+// What bounds A and D now.  A: each element's sum, a chain of 2,000
+// dependent adds at ~4 clocks (2.09 SASS instructions a step issue beside
+// it), then the launch and the 1 KB copy.  D: its SM's copy unit.  On an
+// H100 (700 W) a block's 128-byte bulk copies, issued back to back, go at
+// about one per 55 clocks (28 ns a step) whatever the ring's depth (128 to
+// 512 steps) or the stage (16 to 64 steps); 512-byte copies into blocks
+// of 128 threads issued by four warps took 33 ns a copy, a quarter of the
+// rows multicast over a cluster of 4 blocks 37-41 ns, a branch around each
+// copy 46 ns, and an mbarrier a step, not a stage, 99 ns
+// (scripts/torch_crossbar_shapes.py on edited copies).  So D runs at ~7
+// times its add chain, under the 40 ns a step of one block of 1024
+// threads loading from L2.  E in one block (the first port) was bound by
+// its SM's issue of 1024 x 141 float operations a step (128 a clock: about
+// 1,128 clocks a step); spread as 32 blocks of one warp, one warp an SM, no
+// SM's issue binds and the chain's latency does: 141 dependent operations
+// of ~4 clocks a step
 // (probes/__init__.py latency_bound_ms).  The clocks a dependent operation
 // of that bound are the card's, read apart from E's code by a bare chain
 // of multiplies and adds (op_chain_kernel, dpt_probe_crossbar_op_cycles);
@@ -95,8 +123,11 @@ using dpt::probe::dyn_start;
 using dpt::probe::kTile;
 constexpr int kLanes = 128;
 constexpr int kRows = 8;
-constexpr int kUnroll = 8;     // P4-d's steps in flight
-constexpr int kRowChunk = 1024;  // P4-d's rows staged at a time
+constexpr int kSublaneThreads = 32;  // A's threads a block: one warp
+constexpr int kRowsThreads = 32;  // D's threads a block: one warp
+constexpr int kRowsGroup = 16;  // D's steps a stage, on one mbarrier
+constexpr int kRowsStages = 8;  // D's stages in its ring
+constexpr int kRowsAhead = kRowsGroup * kRowsStages;  // D's ring, in steps
 constexpr int kMathOps = 70;   // P4-e's multiply-adds a step
 constexpr int kMathThreads = 32;  // P4-e's threads a block: one warp
 constexpr int kChainPairs = 512;  // the bare chain's multiply-adds a step
@@ -106,20 +137,13 @@ constexpr int kGroupLoads = 32;  // B's lookups a group: 32 / K steps
 constexpr int kFusedThreads = 32;  // C's threads a block: one warp
 constexpr int kFusedGroup = 8;  // C's steps a group, a multiple of 8
 
-__global__ void __launch_bounds__(kTile) sublane_kernel(
-    const float* __restrict__ x, const int* __restrict__ sub, int iters,
-    float* __restrict__ out) {
-  __shared__ float xs[kTile];
-  const int e = static_cast<int>(threadIdx.x);
-  const int c = e % kLanes;
-  xs[e] = __ldg(x + e);
-  const unsigned s0 = static_cast<unsigned>(__ldg(sub + e));
-  __syncthreads();
-  float acc = 0.f;
-  for (int k = 0; k < iters; ++k) {
-    acc = acc + xs[static_cast<int>((s0 + k) & (kRows - 1)) * kLanes + c];
+// D's block barrier: a warp's alone for a one-warp block.
+__device__ __forceinline__ void sync_rows_block() {
+  if constexpr (kRowsThreads == 32) {
+    __syncwarp();
+  } else {
+    __syncthreads();
   }
-  out[e] = acc;
 }
 
 // Copies kWords words, word w being src[w % kSrc], each plus q for q < K,
@@ -286,33 +310,153 @@ __global__ void __launch_bounds__(kFusedThreads) fused_kernel(
       iters);
 }
 
-__global__ void __launch_bounds__(kTile) rows_kernel(
+// P4-a: block b of T = kSublaneThreads threads holds elements b * T ..
+// b * T + T - 1 (in one tile row) and their columns of x's 8 rows, thread
+// t's word of row j at j * T + t (bank t % 32).  A thread reads only the
+// words it wrote, so a warp's barrier is enough whatever T.  Step k reads
+// row (s0 + k) & 7, a per-lane constant of k % 8, by a volatile load: one
+// shared load a step.
+__global__ void __launch_bounds__(kSublaneThreads) sublane_kernel(
+    const float* __restrict__ x, const int* __restrict__ sub, int iters,
+    float* __restrict__ out) {
+  constexpr int T = kSublaneThreads;
+  __shared__ float xs[kRows * T];
+  const int t = static_cast<int>(threadIdx.x);
+  const int e = static_cast<int>(blockIdx.x) * T + t;
+  const int c = e % kLanes;
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) xs[j * T + t] = __ldg(x + j * kLanes + c);
+  const unsigned s0 = static_cast<unsigned>(__ldg(sub + e));
+  __syncwarp();
+  const volatile float* x_u[kRows];
+#pragma unroll
+  for (int u = 0; u < kRows; ++u) {
+    x_u[u] = xs + static_cast<int>((s0 + u) & (kRows - 1)) * T + t;
+  }
+  out[e] = sum_steps<kRows, 1>(
+      [&](unsigned) { return [&](int u) { return *x_u[u]; }; }, iters);
+}
+
+// D's dynamic shared memory: the ring of kRowsStages stages of kRowsGroup
+// slices of kRowsThreads floats.
+constexpr int kRowsRingBytes =
+    kRowsAhead * kRowsThreads * static_cast<int>(sizeof(float));
+
+// One lane of the calling warp, by elect.sync: the compiler then knows a
+// copy issued under it is issued once, with no loop over active lanes.
+__device__ __forceinline__ bool elect_one() {
+  uint32_t one;
+  asm volatile(
+      "{\n.reg .b32 r;\n.reg .pred p;\n"
+      "elect.sync r|p, 0xffffffff;\n"
+      "selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(one));
+  return one != 0;
+}
+
+// P4-d: block b of T = kRowsThreads threads holds elements e0 = b * T ..
+// e0 + T - 1 (in one tile row), so step k's slice is the T floats at tab +
+// start_k * 128 + e0, start_k the first row of its block.  Stage i (steps
+// i G .. i G + G - 1) lands in slot i % S, on the phase i / S of that
+// slot's mbarrier; it is issued at turn j = i by one lane of warp 0, which
+// arms the mbarrier with the stage's bytes, and consumed at turn j = i +
+// S.  The slices' addresses are kept a chunk of S stages (W steps) at a
+// time, chunk c's written at turn c S from rows read during chunk c - 1,
+// and a stage's in registers from the turn before its issue.
+__global__ void __launch_bounds__(kRowsThreads) rows_kernel(
     const float* __restrict__ tab, int n_rows, const int* __restrict__ rows,
     int iters, float* __restrict__ out) {
-  __shared__ int start[kRowChunk];  // element offset of each step's block
-  const int e = static_cast<int>(threadIdx.x);
-  float acc = 0.f;
-  for (int k0 = 0; k0 < iters; k0 += kRowChunk) {
-    const int n = min(kRowChunk, iters - k0);
-    __syncthreads();
-    for (int j = e; j < n; j += kTile) {
-      // rows[k] * 8 wraps in int32, as in JAX
-      const int r8 = static_cast<int>(
-          static_cast<unsigned>(__ldg(rows + k0 + j)) * kRows);
-      start[j] = dyn_start(r8, n_rows, kRows) * kLanes;
-    }
-    __syncthreads();
-    int j = 0;
-    for (; j + kUnroll <= n; j += kUnroll) {
-      float v[kUnroll];
+  constexpr int T = kRowsThreads;
+  constexpr int G = kRowsGroup, S = kRowsStages, W = kRowsAhead;
+  constexpr int kPer = W / T;  // rows each thread reads a chunk
+  constexpr uint32_t kSliceBytes = T * sizeof(float);
+  extern __shared__ __align__(128) float ring[];  // [S][G][T]
+  __shared__ __align__(8) uint64_t full[S];
+  __shared__ __align__(16) const float* src[W];  // each step's slice
+  const int t = static_cast<int>(threadIdx.x);
+  const int e0 = static_cast<int>(blockIdx.x) * T;
+  const float* tab0 = tab + e0;
+  const int n_stages = (iters + G - 1) / G;
+  const int turns = n_stages > 0 ? n_stages + S : 0;
+
+  int pre[kPer];
+  auto read_rows = [&](int k0) {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) v[u] = __ldg(tab + start[j + u] + e);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) acc = acc + v[u];
+    for (int i = 0; i < kPer; ++i) {
+      const int k = k0 + i * T + t;
+      pre[i] = k < iters ? __ldg(rows + k) : 0;
     }
-    for (; j < n; ++j) acc = acc + __ldg(tab + start[j] + e);
+  };
+  read_rows(0);
+  if (t == 0) {
+#pragma unroll 1
+    for (int s = 0; s < S; ++s) dpt::probe::mbar_init(&full[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  out[e] = acc;
+  float acc = 0.f;
+  for (int j0 = 0; j0 < turns; j0 += S) {
+    sync_rows_block();  // the last chunk's addresses are read
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      // rows[k] * 8 wraps in int32, as in JAX
+      const int r8 = static_cast<int>(static_cast<unsigned>(pre[i]) * kRows);
+      src[i * T + t] = tab0 + dyn_start(r8, n_rows, kRows) * kLanes;
+    }
+    sync_rows_block();
+    read_rows((j0 + S) * G);  // the next chunk's rows, in flight
+    const float* a[G];  // the slices of the stage issued next
+#pragma unroll
+    for (int u = 0; u < G; ++u) a[u] = src[u];
+    const int j1 = min(j0 + S, turns);
+    for (int j = j0; j < j1; ++j) {
+      const int slot = j % S;
+      float v[G];
+      int n = 0;
+      if (j >= S) {  // consume stage j - S
+        const int i = j - S;
+        dpt::probe::mbar_wait(&full[slot], static_cast<uint32_t>((i / S) & 1));
+        n = min(G, iters - i * G);
+        const float* sl = ring + slot * G * T + t;
+#pragma unroll
+        for (int u = 0; u < G; ++u) {
+          if (u < n) v[u] = sl[u * T];
+        }
+        sync_rows_block();  // every thread has read the slot
+      }
+      if (j < n_stages && t < 32 && elect_one()) {
+        const int m = min(G, iters - j * G);
+        float* dst = ring + slot * G * T;
+        dpt::probe::mbar_expect(&full[slot], m * kSliceBytes);
+        if (m == G) {
+          // a whole stage's copies back to back, their addresses moved to
+          // uniform registers first: a branch around each copy (the short
+          // stage's form) made D 1.6x slower
+#pragma unroll
+          for (int u = 0; u < G; ++u) {
+            dpt::probe::bulk_copy(dst + u * T, a[u], kSliceBytes,
+                                  &full[slot]);
+          }
+        } else {
+#pragma unroll
+          for (int u = 0; u < G; ++u) {
+            if (u < m) {
+              dpt::probe::bulk_copy(dst + u * T, a[u], kSliceBytes,
+                                    &full[slot]);
+            }
+          }
+        }
+      }
+      if (j + 1 < j0 + S) {
+#pragma unroll
+        for (int u = 0; u < G; ++u) a[u] = src[(j + 1 - j0) * G + u];
+      }
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        if (u < n) acc = acc + v[u];
+      }
+    }
+  }
+  out[e0 + t] = acc;
 }
 
 // Element blockIdx.x * 32 + threadIdx.x; with `cycles`, thread 0 writes
@@ -370,11 +514,21 @@ cudaError_t allow_shared(const void* kernel, int bytes) {
                               bytes);
 }
 
-// B's and C's one grid each, a tile element a thread, every element once.
+// Each kernel's one grid, a tile element a thread, every element once.
 static_assert(kTile % kLanesThreads == 0 && kLanesThreads == kLanes,
               "B's blocks are whole tile rows");
 static_assert(kTile % kFusedThreads == 0 && kFusedThreads == kBanks,
               "C's blocks are one warp");
+static_assert(kTile % kSublaneThreads == 0 &&
+                  kLanes % kSublaneThreads == 0 && kSublaneThreads % 32 == 0,
+              "A's blocks are whole warps within a tile row");
+static_assert(kTile % kRowsThreads == 0 && kLanes % kRowsThreads == 0 &&
+                  kRowsThreads % 32 == 0 && kRowsAhead % kRowsThreads == 0,
+              "D's blocks are whole warps within a tile row");
+static_assert((kRowsStages & (kRowsStages - 1)) == 0,
+              "D's stages are a power of 2");
+static_assert(kRowsThreads * sizeof(float) % 16 == 0,
+              "D's slices are whole 16-byte units of a bulk copy");
 
 template <int K>
 int launch_lanes(const float* x, const int* idx, int iters, float* out,
@@ -392,11 +546,14 @@ int launch_lanes(const float* x, const int* idx, int iters, float* out,
 
 // Each launch runs on `stream` and returns cudaGetLastError() after it.
 // Tiles are [8, 128] (x f32; sub, idx, lane, srow int32), out f32 [8, 128].
+// P4-a: the tile in blocks of kSublaneThreads; a negative iters returns
+// cudaErrorInvalidValue.
 extern "C" int dpt_probe_crossbar_sublane(const float* x, const int* sub,
                                           int iters, float* out,
                                           void* stream) {
-  sublane_kernel<<<1, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, sub, iters, out);
+  if (iters < 0) return static_cast<int>(cudaErrorInvalidValue);
+  sublane_kernel<<<kTile / kSublaneThreads, kSublaneThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(x, sub, iters, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -431,12 +588,25 @@ extern "C" int dpt_probe_crossbar_fused(const float* x, const int* lane,
   return static_cast<int>(cudaGetLastError());
 }
 
-// P4-d: tab f32 [n_rows, 128] (n_rows >= 8), rows int32 [iters].
+// P4-d: tab f32 [n_rows, 128], rows int32 [iters], the tile in blocks of
+// kRowsThreads.  A negative iters, fewer than 8 rows or a table whose base
+// is not 16-byte aligned (a bulk copy's source must be) returns
+// cudaErrorInvalidValue.
 extern "C" int dpt_probe_crossbar_rows(const float* tab, int n_rows,
                                        const int* rows, int iters,
                                        float* out, void* stream) {
-  rows_kernel<<<1, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      tab, n_rows, rows, iters, out);
+  if (iters < 0 || n_rows < kRows ||
+      reinterpret_cast<uintptr_t>(tab) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if constexpr (kRowsRingBytes > 48 * 1024) {  // past the default limit
+    static const cudaError_t allowed = allow_shared(
+        reinterpret_cast<const void*>(rows_kernel), kRowsRingBytes);
+    if (allowed != cudaSuccess) return static_cast<int>(allowed);
+  }
+  rows_kernel<<<kTile / kRowsThreads, kRowsThreads, kRowsRingBytes,
+                static_cast<cudaStream_t>(stream)>>>(tab, n_rows, rows,
+                                                     iters, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,7 +28,11 @@ B runs in 8 blocks of 128 threads (a tile row each) and C in 32 blocks of
 one warp, each warp reading a table copied once a shared-memory bank, so
 that every lookup is one wavefront whatever the indices; `index_patterns`
 makes the index tiles the kernels are timed on (seeded, one bank,
-identity).
+identity).  A runs in 32 blocks of one warp on B and C's step loop, each
+lane reading its own column of x's 8 rows (always its bank).  D runs in
+32 blocks of one warp, each taking 32 columns of one tile row: a step's
+128-byte slice of the table arrives by a bulk copy into a shared-memory
+ring, so the table's base must be 16-byte aligned on the card.
 
     python -m dpt_tpu_torch.probes.probe_crossbar
 
@@ -205,7 +209,8 @@ def fused_lookup(x, lane, srow, iters=ITERS):
 
 def row_blocks(tab, rows):
     """[8, 128] f32: the sum over k of the row block tab[rows[k] * 8 :
-    rows[k] * 8 + 8]."""
+    rows[k] * 8 + 8].  On the card tab's base must be 16-byte aligned (a
+    ValueError otherwise, before any launch)."""
     probes.check_tensor("tab", tab, torch.float32, (None, LANES))
     probes.check_tensor("rows", rows, torch.int32, (None,))
     if not ROWS <= tab.shape[0] < 2**31 // LANES:
@@ -214,10 +219,15 @@ def row_blocks(tab, rows):
     probes.check_steps(rows.shape[0])
     if probes.on_device(tab, rows) == "cpu":
         return row_blocks_reference(tab, rows)
+    tab = tab.contiguous()
+    if tab.data_ptr() % 16:
+        raise ValueError("tab's base must be 16-byte aligned (the kernel "
+                         "bulk-copies its rows), got address "
+                         f"{tab.data_ptr():#x}")
     return probes.launch_kernel(
         "crossbar_rows", torch.empty((ROWS, LANES), dtype=torch.float32,
                                      device=tab.device),
-        tab.contiguous(), tab.shape[0], rows.contiguous(), rows.shape[0])
+        tab, tab.shape[0], rows.contiguous(), rows.shape[0])
 
 
 def vector_ops(x, iters=ITERS):

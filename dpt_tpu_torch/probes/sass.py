@@ -7,13 +7,17 @@ dpt_tpu_torch.probes.r3_smem_proto --sass`).
 A kernel's step loop is its backward branch that spans the most loads of
 one kind: global loads (LDG) for the walks, each step of which loads its
 record (and leaf row) while the loops around it (set-up, the exit's merge)
-load less or nothing; shared loads (LDS) for P4's lane lookups, whose
-tables are filled before the loop by stores alone.  A leaf loop is the
+load less or nothing; shared loads (LDS) for P4's lookups, whose
+tables are filled before the loop by stores alone; float adds (FADD) for
+P4-d, whose loop over chunks of row addresses holds its step loop, with
+more shared loads but no more adds (of two loops over as many, the one
+whose branch comes first, the inner, stays).  A leaf loop is the
 innermost such loop.
 """
 
 from __future__ import annotations
 
+import collections
 import pathlib
 import re
 import subprocess
@@ -83,4 +87,27 @@ def step_loops(text: str, kernel: str, innermost=False, loads=("LDG",)):
         if best is not None:
             out.append((m, [opcode(t) for _, t in
                             instrs[best[0]:best[1] + 1]]))
+    return out
+
+
+def loop_counts(text: str, kernel: str, adds: int = 1,
+                loads=("LDS",)) -> list:
+    """[(match, counts)] of each function of `text` matching `kernel` (as
+    `step_loops`, by `loads`): its step loop's instructions, its steps
+    (the FADD in it over `adds`, each step's dependent adds),
+    instructions, shared loads (LDS) and global loads (LDG, not LDGSTS) a
+    step, and each of its opcodes a step, the commonest first."""
+    out = []
+    for m, ops in step_loops(text, kernel, loads=loads):
+        count = collections.Counter(o.split(".")[0] for o in ops)
+        steps = count["FADD"] / adds
+        if steps == 0:
+            continue
+        out.append((m, {
+            "loop_instructions": len(ops), "steps": steps,
+            "per_step": len(ops) / steps,
+            "lds_per_step": count["LDS"] / steps,
+            "ldg_per_step": count["LDG"] / steps,
+            "by_opcode": {o: c / steps for o, c in count.most_common()},
+        }))
     return out

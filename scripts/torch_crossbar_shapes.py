@@ -1,50 +1,68 @@
-"""P4-b and P4-c (csrc/probes/crossbar.cu `lanes_kernel`, `fused_kernel`)
-in the grid they are built for, beside the one-block kernels of an older
-tree: what a lane lookup from a table copied once a shared-memory bank
-costs, and whether the indices change it.
+"""P4-a, P4-b, P4-c and P4-d (csrc/probes/crossbar.cu `sublane_kernel`,
+`lanes_kernel`, `fused_kernel`, `rows_kernel`) in the grids they are built
+for, beside an older tree's kernels, A and D in blocks of 128, and D
+loading its row blocks by plain loads: what a lookup from shared memory and
+a row block from L2 cost, and whether the indices change it.
 
     python scripts/torch_crossbar_shapes.py [--old DIR] [--sass]
 
-Each build's P4-b (K = 1, 4, 12 at the TPU script's 2,000 // K steps) and
-P4-c (2,000 steps), on each index pattern of
-`probe_crossbar.index_patterns` (seeded, one bank, identity), is first
-checked equal to its plain version bit for bit, then timed with
-`probes.launch_ms` (the median of 20 launches behind a sleep) in turns over
-3 rounds, the order reversed every round.  This tree's kernels run
-through the public wrappers (`lane_gathers`, `fused_lookup`).
+Each build's P4-a (2,000 steps; the index pattern's `srow` tile as its
+`sub`), P4-b (K = 1, 4, 12 at the TPU script's 2,000 // K steps) and P4-c
+(2,000 steps), on each index pattern of `probe_crossbar.index_patterns`
+(seeded, one bank, identity), and its P4-d at 2,000 and 2,003 rows of
+`probe_crossbar.inputs`' table (seed 0), is first checked equal to its
+plain version bit for bit, then timed with `probes.launch_ms` (the median
+of 20 launches behind a sleep) in turns over 3 rounds, the order reversed
+every round.  This tree's kernels run through the public wrappers
+(`sublane_gather`, `lane_gathers`, `fused_lookup`, `row_blocks`).  The
+edited copies of this tree's crossbar.cu (`EDITS`), each written under
+`dpt_tpu_torch/_build/crossbar_NAME/` and built alone: "w128" runs A and
+D in 8 blocks of 128 threads (a tile row each; `kSublaneThreads`,
+`kRowsThreads`), timed for both; "ldg8", "ldg16" and "ldg32" put in place
+of D's ring its step loop before the ring (the row starts staged in
+shared memory, one plain load a step, 8, 16 or 32 steps' loads in
+flight) over the same 32 one-warp blocks, timed for D.
 
   --old DIR           DIR/crossbar.cu of an older tree, with its
                       probe_common.cuh and ../traverse_common.cuh (the C
-                      interface `dpt_probe_crossbar_lanes(x, idx, K, iters,
-                      out, stream)` and `dpt_probe_crossbar_fused(x, lane,
-                      srow, iters, out, stream)`), e.g. the one-block
-                      kernels unpacked by `git archive <commit>
-                      dpt_tpu_torch/csrc | tar -x -C
+                      interface `dpt_probe_crossbar_sublane(x, sub, iters,
+                      out, stream)`, `dpt_probe_crossbar_lanes(x, idx, K,
+                      iters, out, stream)`, `dpt_probe_crossbar_fused(x,
+                      lane, srow, iters, out, stream)` and
+                      `dpt_probe_crossbar_rows(tab, n_rows, rows, iters,
+                      out, stream)`), e.g. unpacked by `git archive
+                      <commit> dpt_tpu_torch/csrc | tar -x -C
                       dpt_tpu_torch/_build/old`; built alone by
                       `kernels/build.build` (the probe library's flags) and
                       timed as "old" in the same turns.
   --sass              each build's step loops in the machine code
-                      (`cuobjdump -sass`): of each kernel, the loop over the
-                      most shared loads (LDS), its steps (its FADD over K),
-                      and its instructions and LDS a step.
+                      (`cuobjdump -sass`, `probes.sass.loop_counts`): of
+                      each kernel, the loop over the most shared loads
+                      (LDS; for D, over the most float adds), its steps
+                      (its FADD over K), and its instructions, LDS and
+                      global loads (LDG) a step.  For the old and ldg
+                      builds' D that loop is the one over chunks of row
+                      starts, so its counts a step include their set-up.
 
 Prints the card's name and power limit, one line per kernel and pattern
-(the median of the rounds' medians, ns a step, the old build's time over
-this tree's), each build's time at 0 steps on the seeded tile
-(the fill of its copies and the launch alone) and its loop's ns a step
-(the seeded time less that), each build's one-bank and identity times over
-its seeded time, each kernel's latency bound (its steps x K dependent adds at
-the card's clocks a dependent operation, `probe_crossbar.op_cycles`), and
-one JSON line.  Needs a CUDA card.
+or row count (the median of the rounds' medians, ns a step, each other
+build's time over this tree's), each build's time at 0 steps on the seeded
+tile or at 0 rows (the launch and the fill or ring set-up alone) and its
+loop's ns a step (the seeded or 2,000-row time less that), each build's
+one-bank and identity times over its seeded time, each kernel's latency
+bound (its steps x K dependent adds at the card's clocks a dependent
+operation, `probe_crossbar.op_cycles`), and one JSON line.  Needs a CUDA
+card.
 """
 
 from __future__ import annotations
 
 import argparse
-import collections
 import ctypes
 import json
 import pathlib
+import re
+import shutil
 import statistics
 import sys
 
@@ -59,9 +77,61 @@ from dpt_tpu_torch.kernels import build  # noqa: E402
 from dpt_tpu_torch.probes import probe_crossbar as p4  # noqa: E402
 from dpt_tpu_torch.probes import sass  # noqa: E402
 
-KERNELS = (*(f"lanes_K{K}" for K in p4.KS), "fused")
+KERNELS = ("sublane", *(f"lanes_K{K}" for K in p4.KS), "fused", "rows")
+ROW_COUNTS = ("2000", "2003")
 TIMED_LAUNCHES = 20
 ROUNDS = 3
+# D's step loop before the ring (the first port's, over one block of 1024
+# threads), over kRowsThreads-thread blocks: the row starts staged in
+# shared memory 1,024 at a time, one plain load (LDG) a step, @U@ steps'
+# loads in flight and their adds in the order of k.
+LDG_ROWS = """__global__ void __launch_bounds__(kRowsThreads) rows_kernel(
+    const float* __restrict__ tab, int n_rows, const int* __restrict__ rows,
+    int iters, float* __restrict__ out) {
+  constexpr int kChunk = 1024, U = @U@;
+  __shared__ int start[kChunk];
+  const int t = static_cast<int>(threadIdx.x);
+  const int e = static_cast<int>(blockIdx.x) * kRowsThreads + t;
+  const float* tab0 = tab + e;
+  float acc = 0.f;
+  for (int k0 = 0; k0 < iters; k0 += kChunk) {
+    const int n = min(kChunk, iters - k0);
+    sync_rows_block();
+    for (int j = t; j < n; j += kRowsThreads) {
+      const int r8 = static_cast<int>(
+          static_cast<unsigned>(__ldg(rows + k0 + j)) * kRows);
+      start[j] = dyn_start(r8, n_rows, kRows) * kLanes;
+    }
+    sync_rows_block();
+    int j = 0;
+    for (; j + U <= n; j += U) {
+      float v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) v[u] = __ldg(tab0 + start[j + u]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) acc = acc + v[u];
+    }
+    for (; j < n; ++j) acc = acc + __ldg(tab0 + start[j]);
+  }
+  out[e] = acc;
+}
+"""
+# The edited copies of this tree's crossbar.cu: name -> (the constants set,
+# the text put in place of `rows_kernel` or None, the kernels timed).
+EDITS = {
+    "w128": ({"kSublaneThreads": 128, "kRowsThreads": 128}, None,
+             ("sublane", "rows")),
+    **{f"ldg{u}": ({}, LDG_ROWS.replace("@U@", str(u)), ("rows",))
+       for u in (8, 16, 32)},
+}
+# kernel -> the regex of its function's name in the machine code
+FUNCTIONS = {"sublane": r"sublane_kernel", "fused": r"fused_kernel",
+             "rows": r"rows_kernel",
+             **{f"lanes_K{K}": rf"lanes_kernelILi{K}E" for K in p4.KS}}
+# kernel -> what its step loop is the loop over the most of: shared loads
+# for the lookups, float adds for D (whose loop over chunks holds the step
+# loop and more shared loads)
+STEP_LOOP_BY = {k: ("FADD",) if k == "rows" else ("LDS",) for k in FUNCTIONS}
 
 
 def sources(probe_dir: pathlib.Path):
@@ -69,77 +139,131 @@ def sources(probe_dir: pathlib.Path):
             probe_dir.parent / "traverse_common.cuh"]
 
 
-def steps_of(kernel):
+def edited_copy(name) -> pathlib.Path:
+    """This tree's csrc/probes/crossbar.cu edited as `EDITS[name]` says,
+    and the headers it includes, under _build/crossbar_<name>/probes."""
+    consts, rows_kernel, _ = EDITS[name]
+    text = (build.PROBE_CSRC / "crossbar.cu").read_text()
+    edits = [(rf"constexpr int {c} = -?\d+;", f"constexpr int {c} = {v};")
+             for c, v in consts.items()]
+    if rows_kernel is not None:
+        # the kernel's definition, to its closing brace at column 0
+        edits.append((r"__global__ void __launch_bounds__\(kRowsThreads\) "
+                      r"rows_kernel\(.*?\n}\n", rows_kernel))
+    for pattern, new in edits:
+        text, n = re.subn(pattern, lambda _m, new=new: new, text,
+                          flags=re.S)
+        if n != 1:
+            sys.exit(f"crossbar.cu has {n} matches of {pattern!r} to edit, "
+                     "not one")
+    d = build.BUILD_DIR / f"crossbar_{name}" / "probes"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "crossbar.cu").write_text(text)
+    shutil.copy(build.PROBE_CSRC / "probe_common.cuh", d)
+    shutil.copy(build.CSRC / "traverse_common.cuh", d.parent)
+    return d
+
+
+def steps_of(kernel, case="2000"):
     """(steps, dependent adds a step) of a kernel at the TPU script's
-    ITERS."""
-    if kernel == "fused":
+    ITERS (D: at `case` rows)."""
+    if kernel == "rows":
+        return (int(case) if case.isdigit() else int(ROW_COUNTS[0])), 1
+    if kernel in ("sublane", "fused"):
         return p4.ITERS, 1
     K = int(kernel.split("_K")[1])
     return p4.ITERS // K, K
 
 
-def library_caller(lib_path):
-    """call(kernel, x, tiles) -> out through the C interface of a crossbar.cu
-    built alone at `lib_path`."""
-    lib = ctypes.CDLL(str(lib_path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dpt_probe_crossbar_lanes.argtypes = [p, p, i, i, p, p]
-    lib.dpt_probe_crossbar_fused.argtypes = [p, p, p, i, p, p]
-    lib.dpt_probe_crossbar_lanes.restype = i
-    lib.dpt_probe_crossbar_fused.restype = i
+def cases_of(kernel):
+    """The timed cases of a kernel: the index patterns, or D's row counts,
+    and "none": 0 steps (the seeded tile) or 0 rows."""
+    return (*(ROW_COUNTS if kernel == "rows" else p4.PATTERNS), "none")
 
-    def call(kernel, x, t, steps=None):
+
+class Library:
+    """The C interface of a crossbar.cu built alone at `lib_path`."""
+
+    def __init__(self, lib_path):
+        self.name = pathlib.Path(lib_path).name
+        lib = ctypes.CDLL(str(lib_path))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn, args in (("sublane", [p, p, i, p, p]),
+                         ("lanes", [p, p, i, i, p, p]),
+                         ("fused", [p, p, p, i, p, p]),
+                         ("rows", [p, i, p, i, p, p])):
+            f = getattr(lib, f"dpt_probe_crossbar_{fn}")
+            f.argtypes = args
+            f.restype = i
+        self.lib = lib
+
+    def _check(self, kernel, err):
+        if err:
+            raise RuntimeError(f"{self.name} {kernel}: cudaError {err}")
+
+    def lookup(self, kernel, x, t, steps):
         out = torch.empty_like(x)
         stream = torch.cuda.current_stream().cuda_stream
-        K = steps_of(kernel)[1]
-        steps = steps_of(kernel)[0] if steps is None else steps
-        if kernel == "fused":
-            err = lib.dpt_probe_crossbar_fused(
+        if kernel == "sublane":
+            err = self.lib.dpt_probe_crossbar_sublane(
+                x.data_ptr(), t["srow"].data_ptr(), steps, out.data_ptr(),
+                stream)
+        elif kernel == "fused":
+            err = self.lib.dpt_probe_crossbar_fused(
                 x.data_ptr(), t["lane"].data_ptr(), t["srow"].data_ptr(),
                 steps, out.data_ptr(), stream)
         else:
-            err = lib.dpt_probe_crossbar_lanes(
-                x.data_ptr(), t["idx"].data_ptr(), K, steps, out.data_ptr(),
-                stream)
-        if err:
-            raise RuntimeError(f"{lib_path.name} {kernel}: cudaError {err}")
+            err = self.lib.dpt_probe_crossbar_lanes(
+                x.data_ptr(), t["idx"].data_ptr(), steps_of(kernel)[1],
+                steps, out.data_ptr(), stream)
+        self._check(kernel, err)
         return out
 
-    return call
+    def rows(self, tab, rows):
+        out = torch.empty((p4.ROWS, p4.LANES), dtype=torch.float32,
+                          device=tab.device)
+        err = self.lib.dpt_probe_crossbar_rows(
+            tab.data_ptr(), tab.shape[0], rows.data_ptr(), rows.shape[0],
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        self._check("rows", err)
+        return out
 
 
-def tree_call(kernel, x, t, steps=None):
-    steps_, K = steps_of(kernel)
-    steps = steps_ if steps is None else steps
-    if kernel == "fused":
-        return p4.fused_lookup(x, t["lane"], t["srow"], steps)
-    return p4.lane_gathers(x, t["idx"], K, steps * K)
+class Tree:
+    """This tree's kernels, through the public wrappers."""
+
+    @staticmethod
+    def lookup(kernel, x, t, steps):
+        if kernel == "sublane":
+            return p4.sublane_gather(x, t["srow"], steps)
+        if kernel == "fused":
+            return p4.fused_lookup(x, t["lane"], t["srow"], steps)
+        K = steps_of(kernel)[1]
+        return p4.lane_gathers(x, t["idx"], K, steps * K)
+
+    @staticmethod
+    def rows(tab, rows):
+        return p4.row_blocks(tab, rows)
 
 
-def plain(kernel, x, t):
-    steps, K = steps_of(kernel)
+def plain(kernel, x, t, steps):
+    if kernel == "sublane":
+        return p4.sublane_gather_reference(x, t["srow"], steps)
     if kernel == "fused":
         return p4.fused_lookup_reference(x, t["lane"], t["srow"], steps)
-    return p4.lane_gathers_reference(x, t["idx"], K, steps)
+    return p4.lane_gathers_reference(x, t["idx"], steps_of(kernel)[1], steps)
 
 
-def step_loops(lib_path):
-    """{kernel: {...}} of a built library: each kernel's loop over the most
-    shared loads, its steps (FADD over K), instructions and LDS a step."""
+def step_loops(lib_path, kernels):
+    """{kernel: counts} of a built library's step loops
+    (`probes.sass.loop_counts`, by shared loads)."""
     text = sass.dump(lib_path)
     out = {}
-    for regex in (r"lanes_kernelILi(\d+)E", r"(fused)_kernel"):
-        for m, ops in sass.step_loops(text, regex, loads=("LDS",)):
-            kernel = ("fused" if m.group(1) == "fused"
-                      else f"lanes_K{m.group(1)}")
-            count = collections.Counter(o.split(".")[0] for o in ops)
-            steps = count["FADD"] / steps_of(kernel)[1]
-            out[kernel] = {
-                "loop_instructions": len(ops), "steps": steps,
-                "per_step": len(ops) / steps, "lds_per_step":
-                    count["LDS"] / steps,
-                "by_opcode": {o: c / steps for o, c in count.most_common(10)},
-            }
+    for k in kernels:
+        found = sass.loop_counts(text, FUNCTIONS[k], adds=steps_of(k)[1],
+                                 loads=STEP_LOOP_BY[k])
+        if found:
+            out[k] = found[0][1]
     return out
 
 
@@ -154,11 +278,17 @@ def main():
     print(card, flush=True)
     paths = {"tree": build.library_path("libdpt_probes",
                                         build._probe_sources())}
-    calls = {"tree": tree_call}
+    calls = {"tree": Tree}
     if args.old is not None:
         paths["old"] = build.build("libdpt_crossbar_old", sources(args.old))
-        calls["old"] = library_caller(paths["old"])
-    builds = list(calls)
+        calls["old"] = Library(paths["old"])
+    for name in EDITS:
+        paths[name] = build.build(f"libdpt_crossbar_{name}",
+                                  sources(edited_copy(name)))
+        calls[name] = Library(paths[name])
+
+    def builds_of(kernel):
+        return [b for b in calls if b not in EDITS or kernel in EDITS[b][2]]
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
@@ -166,28 +296,36 @@ def main():
                         .astype(np.float32), device=dev)
     tiles = {name: {k: torch.as_tensor(v, device=dev) for k, v in t.items()}
              for name, t in p4.index_patterns(rng).items()}
-    # (build, kernel, pattern); "none" is the seeded tile at 0 steps: the
-    # fill and the launch alone
-    configs = [(b, k, pat) for k in KERNELS for pat in (*p4.PATTERNS, "none")
-               for b in builds]
     tiles["none"] = tiles["seeded"]
+    a = p4.inputs(np.random.default_rng(0),
+                  iters=max(int(n) for n in ROW_COUNTS))
+    tab = torch.as_tensor(a["tab"], device=dev)
+    rows_of = {n: torch.as_tensor(a["rows"][:int(n)], device=dev)
+               for n in ROW_COUNTS}
+    rows_of["none"] = rows_of[ROW_COUNTS[0]][:0]
+    configs = [(b, k, case) for k in KERNELS for case in cases_of(k)
+               for b in builds_of(k)]
 
-    def run(b, k, pat):
-        return calls[b](k, x, tiles[pat], 0 if pat == "none" else None)
+    def run(b, k, case):
+        if k == "rows":
+            return calls[b].rows(tab, rows_of[case])
+        return calls[b].lookup(k, x, tiles[case],
+                               0 if case == "none" else steps_of(k)[0])
 
     refs = {}
-    for b, k, pat in configs:
-        if pat == "none":
-            continue
-        if (k, pat) not in refs:
-            refs[k, pat] = plain(k, x, tiles[pat])
-        got = run(b, k, pat)
+    for b, k, case in configs:
+        if (k, case) not in refs:
+            refs[k, case] = (
+                p4.row_blocks_reference(tab, rows_of[case]) if k == "rows"
+                else plain(k, x, tiles[case],
+                           0 if case == "none" else steps_of(k)[0]))
+        got = run(b, k, case)
         torch.cuda.synchronize()
-        if not torch.equal(got, refs[k, pat]):
-            raise AssertionError(f"{b} {k} {pat} differs from its plain "
+        if not torch.equal(got, refs[k, case]):
+            raise AssertionError(f"{b} {k} {case} differs from its plain "
                                  "version")
-    print(f"exact: {len(configs)} launches (builds {builds}) equal their "
-          "plain versions", flush=True)
+    print(f"exact: {len(configs)} launches (builds {list(calls)}) equal "
+          "their plain versions", flush=True)
     cycles, ends = p4.op_cycles(x)
     if not torch.equal(ends.cpu(), p4.op_chain_reference(x.cpu())):
         raise AssertionError("the bare chain differs from its plain version")
@@ -195,42 +333,51 @@ def main():
     rounds = {c: [] for c in configs}
     for r in range(ROUNDS):
         for c in (configs if r % 2 == 0 else configs[::-1]):
-            b, k, pat = c
             rounds[c].append(statistics.median(probes.launch_ms(
-                lambda b=b, k=k, pat=pat: run(b, k, pat), [()],
-                n=TIMED_LAUNCHES)))
+                lambda c=c: run(*c), [()], n=TIMED_LAUNCHES)))
     ms = {c: statistics.median(v) for c, v in rounds.items()}
 
     result = {"card": card, "device": torch.cuda.get_device_name(0),
               "rounds": ROUNDS, "cycles_per_op": cycles, "ms": {},
               "rounds_ms": {}, "pattern_ratio": {}, "latency_bound_ms": {},
-              "loop_ns_per_step": {}}
+              "loop_ns_per_step": {}, "fixed_ms": {}}
     for k in KERNELS:
-        steps, chain = steps_of(k)
-        bound = probes.latency_bound_ms(steps, chain, cycles)
-        result["latency_bound_ms"][k] = bound
-        for pat in p4.PATTERNS:
-            tree = ms["tree", k, pat]
+        builds = builds_of(k)
+        timed = cases_of(k)[:-1]
+        for case in timed:
+            steps, chain = steps_of(k, case)
+            tree = ms["tree", k, case]
             line = ", ".join(
-                f"{b} {ms[b, k, pat]:.4f} ({ms[b, k, pat] / tree:.2f}x)"
+                f"{b} {ms[b, k, case]:.4f} ({ms[b, k, case] / tree:.2f}x)"
                 for b in builds[1:])
-            print(f"[time] {k} {pat}: tree {tree:.4f} ms "
+            print(f"[time] {k} {case}: tree {tree:.4f} ms "
                   f"({tree * 1e6 / steps:.1f} ns a step; rounds "
-                  f"{min(rounds['tree', k, pat]):.4f}-"
-                  f"{max(rounds['tree', k, pat]):.4f})"
+                  f"{min(rounds['tree', k, case]):.4f}-"
+                  f"{max(rounds['tree', k, case]):.4f})"
                   + (f"; {line}" if line else ""), flush=True)
-        for pat in (*p4.PATTERNS, "none"):
+            bound = probes.latency_bound_ms(steps, chain, cycles)
+            result["latency_bound_ms"][f"{k} {case}"] = bound
+            print(f"[bound] {k} {case}: {steps} steps x {chain} dependent "
+                  f"adds at the card's {cycles:.4f} clocks an operation: "
+                  f"{bound:.5f} ms, {100 * bound / tree:.3g}% of the tree's "
+                  "time", flush=True)
+        for case in cases_of(k):
             for b in builds:
-                result["ms"][f"{b} {k} {pat}"] = ms[b, k, pat]
-                result["rounds_ms"][f"{b} {k} {pat}"] = rounds[b, k, pat]
-        loop = {b: (ms[b, k, "seeded"] - ms[b, k, "none"]) * 1e6 / steps
+                result["ms"][f"{b} {k} {case}"] = ms[b, k, case]
+                result["rounds_ms"][f"{b} {k} {case}"] = rounds[b, k, case]
+        first = timed[0]
+        steps = steps_of(k, first)[0]
+        loop = {b: (ms[b, k, first] - ms[b, k, "none"]) * 1e6 / steps
                 for b in builds}
         result["loop_ns_per_step"][k] = loop
-        print(f"[fixed] {k} at 0 steps (the fill and the launch): "
+        result["fixed_ms"][k] = {b: ms[b, k, "none"] for b in builds}
+        print(f"[fixed] {k} at 0 steps (the launch and its set-up): "
               + ", ".join(f"{b} {ms[b, k, 'none']:.4f} ms" for b in builds)
-              + "; the loop, seeded less that, ns a step: "
+              + f"; the loop, {first} less that, ns a step: "
               + ", ".join(f"{b} {v:.2f}" for b, v in loop.items()),
               flush=True)
+        if k == "rows":
+            continue
         for b in builds:
             seeded = ms[b, k, "seeded"]
             ratios = {pat: ms[b, k, pat] / seeded for pat in p4.PATTERNS[1:]}
@@ -238,24 +385,23 @@ def main():
             print(f"[pattern] {b} {k}: " + ", ".join(
                 f"{pat} / seeded {v:.3f}" for pat, v in ratios.items()),
                 flush=True)
-        print(f"[bound] {k}: {steps} steps x {chain} dependent adds at the "
-              f"card's {cycles:.4f} clocks an operation: {bound:.5f} ms, "
-              f"{100 * bound / ms['tree', k, 'seeded']:.3g}% of the tree's "
-              "seeded time", flush=True)
     if args.sass:
         result["sass"] = {}
-        for b in builds:
-            loops = step_loops(paths[b])
-            if sorted(loops) != sorted(KERNELS):
+        for b in calls:
+            kernels = [k for k in KERNELS if b in builds_of(k)]
+            loops = step_loops(paths[b], kernels)
+            if sorted(loops) != sorted(kernels):
                 sys.exit(f"{b}: found the step loops of {sorted(loops)} in "
-                         "the machine code, not of every kernel")
+                         f"the machine code, not of every one of {kernels}")
             result["sass"][b] = loops
             for k, c in loops.items():
                 print(f"[sass] {b} {k}: {c['per_step']:.2f} instructions a "
-                      f"step, {c['lds_per_step']:.2f} LDS a step "
+                      f"step, {c['lds_per_step']:.2f} LDS and "
+                      f"{c['ldg_per_step']:.2f} LDG a step "
                       f"({c['loop_instructions']} in a loop of "
                       f"{c['steps']:g} steps); " + ", ".join(
-                          f"{o} {n:.2f}" for o, n in c["by_opcode"].items()),
+                          f"{o} {n:.2f}" for o, n in
+                          list(c["by_opcode"].items())[:10]),
                       flush=True)
     print(json.dumps(result))
 

@@ -30,6 +30,7 @@ import ast
 import functools
 import importlib.util
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -264,6 +265,215 @@ def test_crossbar_matches_jax(jax_kernels, inputs, kernel):
         np.testing.assert_allclose(got, want, rtol=1e-6)
     else:
         np.testing.assert_array_equal(got, want)
+
+
+# D's ring in crossbar.cu (`test_ring_constants_match_crossbar_cu` holds
+# them to it): G steps a stage on one mbarrier, S stages.
+_ROWS_GROUP = 16  # kRowsGroup
+_ROWS_STAGES = 8  # kRowsStages
+G, S = _ROWS_GROUP, _ROWS_STAGES
+# D's row counts about its ring: 1, a stage less and more one, and two
+# passes over the ring's stages and one step.
+RING_ROW_COUNTS = [1, G - 1, G + 1, 2 * S * G + 1]
+
+
+def test_ring_constants_match_crossbar_cu():
+    """The ring's stage and depth that the tests below assume are the
+    ones crossbar.cu builds D with."""
+    text = (pathlib.Path(tp4.__file__).resolve().parent.parent / "csrc"
+            / "probes" / "crossbar.cu").read_text()
+    for name, value in (("kRowsGroup", _ROWS_GROUP),
+                        ("kRowsStages", _ROWS_STAGES),
+                        ("kRowsThreads", 32)):
+        assert re.findall(rf"constexpr int {name} = (\d+);", text) == [
+            str(value)], name
+
+
+def _ring_rows(rng, n):
+    """n rows drawn as the TPU script draws them, with a row that wraps (-1:
+    the table's last block) and two that clamp (600, 511) at the first,
+    middle and last step (the last written wins where they coincide)."""
+    rows = rng.integers(0, tp4.ROW_BLOCKS, n, dtype=np.int32)
+    for pos, v in zip((0, n // 2, n - 1), (-1, 600, 511)):
+        if n:
+            rows[pos] = v
+    return rows
+
+
+@pytest.fixture(scope="module")
+def jax_row_blocks():
+    """n -> f(tab, rows): scripts/probe_crossbar.py's `kern_d` through
+    `go_d` at ITERS = n, recorded and replayed in interpret mode as
+    `jax_kernels` does."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    real = pl.pallas_call
+    made = {}
+
+    def record(kernel, **specs):
+        made["recorded"] = (kernel, specs)
+        raise _Recorded
+
+    def get(n):
+        if n not in made:
+            ns = _crossbar_defs({"jax": jax, "jnp": jnp, "pl": pl,
+                                 "pltpu": pltpu, "ITERS": n, "K": 1})
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(pl, "pallas_call", record)
+                with pytest.raises(_Recorded):
+                    ns["go_d"](jnp.zeros((tp4.TABLE_ROWS, tp4.LANES),
+                                         jnp.float32),
+                               jnp.zeros((n,), jnp.int32))
+            kernel, specs = made.pop("recorded")
+            call = jax.jit(lambda *a: real(kernel, interpret=True,
+                                           **specs)(*a))
+            made[n] = lambda *arrays: np.asarray(call(*arrays))
+        return made[n]
+
+    return get
+
+
+@pytest.mark.parametrize("n", RING_ROW_COUNTS)
+def test_row_blocks_match_jax_around_the_ring(jax_row_blocks, n):
+    """P4-d at row counts off its stage of G steps and past two turns of
+    its ring of S stages, with rows that wrap and clamp, equals the JAX
+    probe's `kern_d` at ITERS = n bit for bit."""
+    rng = np.random.default_rng(40 + n)
+    tab = rng.normal(size=(tp4.TABLE_ROWS, tp4.LANES)).astype(np.float32)
+    rows = _ring_rows(rng, n)
+    want = jax_row_blocks(n)(tab, rows)
+    got = tp4.row_blocks(_t(tab), _t(rows)).numpy()
+    assert np.abs(want).max() > 0
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [0, *RING_ROW_COUNTS, S * G, 2003])
+def test_rows_ring_schedule(n):
+    """D's ring as crossbar.cu `rows_kernel` runs it: stage i (steps i G ..
+    i G + G - 1, the last one short) is issued at turn i into slot i % S
+    and consumed at turn i + S on phase i // S of that slot's mbarrier;
+    a slot is refilled only at the turn that consumed it, so each stage is
+    read whole, once, in the order of k, after it landed and before its
+    slot is refilled; each turn's addresses lie in its chunk of S G,
+    computed at the chunk's first turn from the rows read a chunk ahead;
+    16 KB of ring for one-warp blocks."""
+    stages = -(-n // G)
+    turns = stages + S if stages else 0
+    slots = [None] * S  # the stage each slot holds
+    phases = [0] * S  # the phases each slot's mbarrier has completed
+    read, starts_read = [], set()
+    for j0 in range(0, turns, S):
+        chunk = range(j0 * G, (j0 + S) * G)  # the steps of its starts
+        for j in range(j0, min(j0 + S, turns)):
+            slot = j % S
+            if j >= S:
+                i = j - S
+                assert slots[slot] == i
+                # parity (i // S) & 1: the phase i // S has completed
+                assert phases[slot] == i // S + 1
+                read.extend(range(i * G, min(n, i * G + G)))
+                slots[slot] = None  # handed back
+            if j < stages:
+                assert slots[slot] is None
+                steps = range(j * G, min(n, j * G + G))
+                assert all(k in chunk for k in steps)
+                assert (j - j0) * G + G <= S * G  # inside the chunk
+                starts_read.update(steps)
+                slots[slot] = j
+                phases[slot] += 1
+    assert read == list(range(n)) and starts_read == set(range(n))
+    assert all(v is None for v in slots)
+    assert S * G * 32 * 4 == 16 * 1024
+
+
+@pytest.mark.parametrize("pattern", [*tp4.PATTERNS, "wrap"])
+def test_sublane_layout_reads_its_own_bank(pattern):
+    """A's layout as crossbar.cu `sublane_kernel` builds it: block b of 32
+    threads copies its columns of x's 8 rows, lane l's word of row j at j *
+    32 + l; step k reads row (sub + k) % 8 (a sum wrapping in int32), which
+    for k = 8 g + u is the lane's offset u, so each lane reads only its own
+    bank and a warp's 32 lanes 32 distinct banks at every step; the words
+    summed equal the plain version."""
+    rng = np.random.default_rng(32)
+    x = torch.as_tensor(rng.normal(size=(tp4.ROWS, tp4.LANES))
+                        .astype(np.float32))
+    sub = torch.as_tensor(_lookup_tiles(rng, pattern)["srow"]).reshape(-1)
+    e = torch.arange(tp4.ROWS * tp4.LANES)
+    block, lane, col = e // 32, e % 32, e % tp4.LANES
+    # each block's copy: [32 blocks, 8 rows x 32 lanes]
+    copy = torch.stack([x[:, c0:c0 + 32].reshape(-1) for c0 in
+                        (b % 4 * 32 for b in range(32))])
+    offs = [torch.remainder(sub + u, tp4.ROWS).long() * 32 + lane
+            for u in range(8)]
+    acc = torch.zeros(tp4.ROWS * tp4.LANES)
+    for k in range(20):
+        off = offs[k % 8]
+        assert torch.equal(off % BANKS, lane)
+        row = torch.remainder(sub + k, tp4.ROWS).long()
+        assert torch.equal(copy[block, off], x[row, col])
+        acc = acc + copy[block, off]
+    assert torch.equal(acc.reshape(tp4.ROWS, tp4.LANES),
+                       tp4.sublane_gather_reference(
+                           x, sub.reshape(tp4.ROWS, tp4.LANES), 20))
+
+
+# P4-a's and P4-d's step loops in a cuobjdump -sass listing's layout: A's
+# loop of a shared load and an add a step; D's loop over chunks (global
+# loads of the next chunk's rows, shared stores of the addresses) around
+# its step loop (an mbarrier wait that spins, the slices' shared loads, a
+# bulk copy a step, the adds).
+_SASS_P4 = """
+        Function : _ZN12_GLOBAL__N_114sublane_kernelEPKfPKiiPf
+.L_x_0:
+        /*0000*/                   LDS R4, [R2] ;
+        /*0010*/                   FADD R0, R0, R5 ;
+        /*0020*/                   LDS R5, [R2+0x80] ;
+        /*0030*/                   FADD R0, R0, R4 ;
+        /*0040*/               @P0 BRA `(.L_x_0) ;
+        /*0050*/                   EXIT ;
+        ..........
+        Function : _ZN12_GLOBAL__N_111rows_kernelEPKfiPKiiPf
+.L_x_10:
+        /*0000*/                   LDG.E.CONSTANT R8, desc[UR4][R2.64] ;
+        /*0010*/                   STS.64 [R6], R10 ;
+        /*0020*/                   LDS.64 R12, [R6] ;
+.L_x_11:
+        /*0030*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR5], R3 ;
+.L_x_12:
+        /*0040*/              @!P0 BRA `(.L_x_12) ;
+        /*0050*/                   LDS R20, [R4] ;
+        /*0060*/                   LDS R21, [R4+0x80] ;
+        /*0070*/                   UBLKCP.S.G [UR8], [UR10], UR7 ;
+        /*0080*/                   UBLKCP.S.G [UR12], [UR14], UR7 ;
+        /*0090*/                   LDS.64 R12, [R6+0x10] ;
+        /*00a0*/                   FADD R0, R20, R0 ;
+        /*00b0*/                   FADD R0, R21, R0 ;
+        /*00c0*/               @P1 BRA `(.L_x_11) ;
+        /*00d0*/               @P2 BRA `(.L_x_10) ;
+        /*00e0*/                   EXIT ;
+"""
+
+
+def test_sass_counts_of_p4_step_loops():
+    """`sass.loop_counts` finds A's step loop by its shared loads (2
+    instructions and 1 LDS a step) and D's by its adds: the inner loop,
+    with no global load and a bulk copy a step, not the loop over chunks
+    around it, which holds more shared loads and a global one."""
+    from dpt_tpu_torch.probes import sass
+
+    (_, a), = sass.loop_counts(_SASS_P4, r"sublane_kernel")
+    assert (a["steps"], a["per_step"], a["lds_per_step"],
+            a["ldg_per_step"]) == (2, 2.5, 1.0, 0.0)
+    (_, d), = sass.loop_counts(_SASS_P4, r"rows_kernel", loads=("FADD",))
+    assert d["steps"] == 2 and d["loop_instructions"] == 10
+    assert d["ldg_per_step"] == 0.0 and d["by_opcode"]["UBLKCP"] == 1.0
+    assert d["lds_per_step"] == 1.5
+    (_, chunk), = sass.loop_counts(_SASS_P4, r"rows_kernel")
+    assert chunk["ldg_per_step"] == 0.5 and chunk["lds_per_step"] == 2.0
 
 
 def test_vector_ops_rounds_each_operation():
@@ -692,10 +902,11 @@ def test_vector_ops_exact_on_card_at_script_steps(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [7, 2003])
 def test_row_blocks_exact_on_card_off_the_unroll(cuda, n):
-    """P4-d at step counts that are no multiple of the kernel's unroll by 8:
-    fewer than one unroll (the tail loop alone), and 2,003 (a second chunk
-    of rows staged after the first 1,024, then the tail), with row blocks
-    out of range (from the end, clamped) among them."""
+    """P4-d at step counts that are no multiple of its stage of 16 steps:
+    fewer than one stage (a short stage alone), and 2,003 (16 chunks of
+    128 starts, the ring refilled through them, then a short stage of 3
+    steps), with row blocks out of range (from the end, clamped) among
+    them."""
     rng = np.random.default_rng(23)
     tab = torch.as_tensor(rng.normal(size=(tp4.TABLE_ROWS, tp4.LANES))
                           .astype(np.float32), device=cuda)
@@ -707,6 +918,112 @@ def test_row_blocks_exact_on_card_off_the_unroll(cuda, n):
     torch.cuda.synchronize()
     assert probes.launch_counts["crossbar_rows"] == before + 1
     assert torch.equal(got, tp4.row_blocks_reference(tab, rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_rows", [tp4.TABLE_ROWS, tp4.ROWS])
+@pytest.mark.parametrize("n", [0, 1, G - 1, G + 1, S * G, S * G + 1, 2003])
+def test_row_blocks_exact_on_card_around_the_ring(cuda, n, table_rows):
+    """P4-d over 32 one-warp blocks, its row blocks bulk-copied into a ring
+    of S stages of G steps, equals its plain version bit for bit with one
+    launch counted: at 0 rows, within a stage, about one and about a whole
+    turn of the ring, and at 2,003; rows that wrap (-1) and clamp (600,
+    511) among them; on the TPU script's 4,096-row table and on an 8-row
+    one, where every start clamps to 0."""
+    rng = np.random.default_rng(27)
+    tab = torch.as_tensor(rng.normal(size=(table_rows, tp4.LANES))
+                          .astype(np.float32), device=cuda)
+    rows = torch.as_tensor(_ring_rows(rng, n), device=cuda)
+    before = probes.launch_counts["crossbar_rows"]
+    got = tp4.row_blocks(tab, rows)
+    torch.cuda.synchronize()
+    assert probes.launch_counts["crossbar_rows"] == before + 1
+    assert got.device.type == "cuda"
+    assert torch.equal(got, tp4.row_blocks_reference(tab, rows))
+
+
+@pytest.mark.cuda
+def test_row_blocks_refuse_a_misaligned_table(cuda):
+    """A table whose base is not 16-byte aligned (a bulk copy's source must
+    be) is refused: the wrapper raises before any launch, and the C launch
+    returns cudaErrorInvalidValue (1) and launches nothing; so do fewer
+    than 8 rows and a negative row count on the C side.  The aligned table
+    of the same values launches and is exact."""
+    from dpt_tpu_torch.kernels.build import load_probe_library
+
+    rng = np.random.default_rng(28)
+    flat = torch.as_tensor(rng.normal(size=tp4.TABLE_ROWS * tp4.LANES + 4)
+                           .astype(np.float32), device=cuda)
+    tab = flat[1:1 + tp4.TABLE_ROWS * tp4.LANES].view(tp4.TABLE_ROWS,
+                                                      tp4.LANES)
+    assert tab.is_contiguous() and tab.data_ptr() % 16 == 4
+    rows = torch.as_tensor(_ring_rows(rng, 100), device=cuda)
+    before = dict(probes.launch_counts)
+    with pytest.raises(ValueError, match="aligned"):
+        tp4.row_blocks(tab, rows)
+    assert probes.launch_counts == before
+    lib = load_probe_library()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    out = torch.full((tp4.ROWS, tp4.LANES), float("nan"), device=cuda)
+    for t, n_rows, iters in ((tab, tp4.TABLE_ROWS, 100),
+                             (flat, tp4.ROWS - 1, 100),
+                             (flat, tp4.TABLE_ROWS, -1)):
+        assert lib.dpt_probe_crossbar_rows(
+            t.data_ptr(), n_rows, rows.data_ptr(), iters, out.data_ptr(),
+            stream) == 1
+    torch.cuda.synchronize()
+    assert bool(out.isnan().all())  # nothing was launched
+    aligned = tab.clone()
+    assert aligned.data_ptr() % 16 == 0
+    assert torch.equal(tp4.row_blocks(aligned, rows),
+                       tp4.row_blocks_reference(aligned, rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [0, 1, 7, 9, 2000])
+@pytest.mark.parametrize("pattern", [*tp4.PATTERNS, "wrap"])
+def test_sublane_exact_on_card(cuda, pattern, steps):
+    """P4-a over 32 one-warp blocks on B and C's step loop equals its plain
+    version bit for bit with one launch counted, its sub the pattern's
+    srow tile (near +-2^31 for "wrap"), at 0 steps, within and just past a
+    group of 8, and at the TPU script's 2,000."""
+    rng = np.random.default_rng(29)
+    x = torch.as_tensor(rng.normal(size=(tp4.ROWS, tp4.LANES))
+                        .astype(np.float32), device=cuda)
+    sub = torch.as_tensor(_lookup_tiles(rng, pattern)["srow"], device=cuda)
+    before = probes.launch_counts["crossbar_sublane"]
+    got = tp4.sublane_gather(x, sub, steps)
+    torch.cuda.synchronize()
+    assert probes.launch_counts["crossbar_sublane"] == before + 1
+    assert got.device.type == "cuda"
+    assert torch.equal(got, tp4.sublane_gather_reference(x, sub, steps))
+
+
+@pytest.mark.cuda
+def test_sublane_c_side_refuses(cuda):
+    """A's C launch refuses a negative step count with
+    cudaErrorInvalidValue (1), launching nothing, and launches at 0 and 10
+    steps (an output then equal to the plain version)."""
+    from dpt_tpu_torch.kernels.build import load_probe_library
+
+    lib = load_probe_library()
+    rng = np.random.default_rng(33)
+    x = torch.as_tensor(rng.normal(size=(tp4.ROWS, tp4.LANES))
+                        .astype(np.float32), device=cuda)
+    sub = torch.as_tensor(rng.integers(0, tp4.ROWS, (tp4.ROWS, tp4.LANES),
+                                       dtype=np.int32), device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    out = torch.full_like(x, float("nan"))
+    for iters in (-1, -2**31):
+        assert lib.dpt_probe_crossbar_sublane(
+            x.data_ptr(), sub.data_ptr(), iters, out.data_ptr(), stream) == 1
+    torch.cuda.synchronize()
+    assert bool(out.isnan().all())  # nothing was launched
+    for iters in (0, 10):
+        assert lib.dpt_probe_crossbar_sublane(
+            x.data_ptr(), sub.data_ptr(), iters, out.data_ptr(), stream) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, tp4.sublane_gather_reference(x, sub, iters))
 
 
 LOOKUP_KERNELS = [*(f"crossbar_lanes_K{K}" for K in tp4.KS), "crossbar_fused"]
