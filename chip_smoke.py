@@ -146,7 +146,7 @@ printing one line or more:
                 set to 0 before phase 3 and read before phase 20: the
                 render, optimize and walk phases may launch no probe.
  21. primitives — the primitive probes (the same library): P3
-                (gather.cu), P4 (crossbar.cu, B at K = 1, 4, 12), P7 and P8
+                and P4 (crossbar.cu, B at K = 1, 4, 12), P7 and P8
                 (features.cu), each launched once through its public
                 function at the TPU scripts' inputs and steps (the launch
                 counts set to 0 before and read after) and equal to its
@@ -155,10 +155,11 @@ printing one line or more:
                 clocks a dependent operation, read by a bare chain of
                 multiply-adds in one warp (equal to its plain version bit
                 for bit), and P4-e's first warp alone on one SM with its
-                own clocks an operation; the step loops of P4-a and
-                P4-d in the probe library's machine code (cuobjdump):
+                own clocks an operation; the step loops of P4-a, P4-d
+                and P3-b in the probe library's machine code (cuobjdump):
                 one shared load a step for P4-a, no global load and a
-                bulk copy a step for P4-d; then one timing line each
+                bulk copy a step for P4-d, one shared load a lookup and
+                no global load for P3-b; then one timing line each
                 (wrapper, kernel, plain, the library call where one
                 computes the same function, the bound, for the loops ns a
                 step beside the bound of one SM, and for each loop its
@@ -263,8 +264,8 @@ KERNELS = {
     # The primitive probes (phase 21): no slab.
     **{name: (f"dpt_tpu_torch/csrc/probes/{src}.cu", f"scripts/{script}", 0)
        for name, src, script in (
-           ("gather_axis1", "gather", "attic/probe_gather.py:66"),
-           ("gather_axis0", "gather", "attic/probe_gather.py:98"),
+           ("gather_axis1", "crossbar", "attic/probe_gather.py:66"),
+           ("gather_axis0", "crossbar", "attic/probe_gather.py:98"),
            ("crossbar_sublane", "crossbar", "probe_crossbar.py:48"),
            ("crossbar_lanes", "crossbar", "probe_crossbar.py:64"),
            ("crossbar_fused", "crossbar", "probe_crossbar.py:80"),
@@ -282,7 +283,7 @@ KERNELS = {
 # The CUDA kernel function of each primitive probe (its line in the source
 # goes into the kernels line as source_line).
 PRIMITIVE_FUNCTIONS = {
-    "gather_axis1": "gather_axis1_kernel", "gather_axis0": "gather_axis0_kernel",
+    "gather_axis1": "lanes_kernel", "gather_axis0": "column_kernel",
     "crossbar_sublane": "sublane_kernel", "crossbar_lanes": "lanes_kernel",
     "crossbar_fused": "fused_kernel", "crossbar_rows": "rows_kernel",
     "crossbar_math": "math_kernel", "scalar_load": "scalar_load_kernel",
@@ -336,8 +337,12 @@ DESIGNS = {
         "travel; a sink [P, 3] of final sp, top and the mt8 ok count summed "
         "into rank 0 through distributed shared memory"),
     "gather_axis1": (
-        "one block of 1024 threads, one per tile element; the tile in "
-        "shared memory, index and sum in registers"),
+        "P4-b's kernel at K = 1 (lanes_kernel<1>): 8 blocks of 128 "
+        "threads, a tile row each, one thread per tile element; the row "
+        "copied once a shared-memory bank (and its first 31 words again: "
+        "one wavefront a lookup), a group of 32 steps read from one base, "
+        "each lookup of the next group loaded beside an add of this one, "
+        "the sum in the order of k"),
     "crossbar_sublane": (
         "32 blocks of one warp, one thread per tile element; each block's "
         "32 columns of x's 8 rows in shared memory (lane l's word of row j "
@@ -353,8 +358,12 @@ DESIGNS = {
         "in flight, each loaded beside an add of the 8 before, the sum in "
         "the order of k"),
     "gather_axis0": (
-        "one block of 1024 threads, 8 elements each; the [64, 128] tile "
-        "(32 KB) in shared memory"),
+        "256 blocks of one warp, one thread per tile element; each block's "
+        "32 columns of the 64 rows in shared memory (lane t's word of row "
+        "j at j * 32 + t, always bank t, and the first 31 rows again), a "
+        "group of 32 steps read from one base (an add, a mask and a shift "
+        "a group), each lookup of the next group loaded beside an add of "
+        "this one, the sum in the order of k"),
     "crossbar_lanes": (
         "8 blocks of 128 threads, a tile row each, one thread per tile "
         "element; the row of each of the K tiles x + q copied once a "
@@ -2129,10 +2138,11 @@ def source_line(name):
 
 
 def crossbar_step_loops(tag):
-    """P4-a's and P4-d's step loops in the probe library's machine code
-    (`probes.sass.loop_counts`): A's must load one shared word a step
+    """P4-a's, P4-d's and P3-b's step loops in the probe library's machine
+    code (`probes.sass.loop_counts`): A's must load one shared word a step
     (its lookup, not a value kept in a register), D's must hold no global
-    load and a bulk copy a step (its rows come by the copy engine)."""
+    load and a bulk copy a step (its rows come by the copy engine), P3-b's
+    one shared load a lookup (a step) and no global load."""
     from dpt_tpu_torch.kernels import build
     from dpt_tpu_torch.probes import sass
 
@@ -2140,7 +2150,8 @@ def crossbar_step_loops(tag):
                                         build._probe_sources()))
     loops = {}
     for key, fn, loads in (("crossbar_sublane", "sublane_kernel", ("LDS",)),
-                           ("crossbar_rows", "rows_kernel", ("FADD",))):
+                           ("crossbar_rows", "rows_kernel", ("FADD",)),
+                           ("gather_axis0", "column_kernel", ("LDS",))):
         found = sass.loop_counts(text, fn, loads=loads)
         require(len(found) == 1, f"[{tag}] {fn}: {len(found)} step loops "
                 "in the machine code, want 1")
@@ -2150,17 +2161,24 @@ def crossbar_step_loops(tag):
                       "ldg_per_step": c["ldg_per_step"],
                       "ublkcp_per_step": c["by_opcode"].get("UBLKCP", 0.0)}
     a, d = loops["crossbar_sublane"], loops["crossbar_rows"]
+    g = loops["gather_axis0"]
     require(a["lds_per_step"] == 1.0, f"[{tag}] crossbar_sublane's step "
             f"loop: {a}, want one LDS a step")
     require(d["ldg_per_step"] == 0.0 and d["ublkcp_per_step"] >= 1.0,
             f"[{tag}] crossbar_rows' step loop: {d}, want no LDG and a "
             "bulk copy (UBLKCP) a step")
+    require(g["lds_per_step"] == 1.0 and g["ldg_per_step"] == 0.0,
+            f"[{tag}] gather_axis0's step loop: {g}, want one LDS a lookup "
+            "and no LDG")
     print(f"[{tag}] machine code: crossbar_sublane's step loop "
           f"{a['instructions_per_step']:.2f} instructions and "
           f"{a['lds_per_step']:.2f} LDS a step; crossbar_rows' "
           f"{d['instructions_per_step']:.2f} instructions, "
           f"{d['ldg_per_step']:.2f} LDG and {d['ublkcp_per_step']:.2f} "
-          "UBLKCP a step", flush=True)
+          "UBLKCP a step; gather_axis0's "
+          f"{g['instructions_per_step']:.2f} instructions, "
+          f"{g['lds_per_step']:.2f} LDS and {g['ldg_per_step']:.2f} LDG a "
+          "step", flush=True)
     return loops
 
 

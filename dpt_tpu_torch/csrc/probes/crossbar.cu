@@ -1,8 +1,15 @@
-// P4 on Hopper: the per-lane lookup primitives of scripts/probe_crossbar.py,
-// each a loop over one [8, 128] tile spread over SMs: A, C, D and E in 32
-// blocks of one warp, B in 8 blocks of 128.
+// P3 and P4 on Hopper: the per-lane lookup primitives of
+// scripts/attic/probe_gather.py and scripts/probe_crossbar.py, each a loop
+// over one tile spread over SMs: A, C, D, E and P3-b in blocks of one warp,
+// B and P3-a in 8 blocks of 128.
 //
-// Replaces the five Pallas kernels of scripts/probe_crossbar.py, run by
+// Replaces the two Pallas kernels of scripts/attic/probe_gather.py
+// `pallas_gather_probe` :64, acc from 0 and every sum in the order of k:
+//   P3-a `kern` :66 (pallas_call :82), x f32 [8, 128], 1,000 steps:
+//        acc[r, c] += x[r, (idx[r, c] + k) % 128]
+//   P3-b `kern0` :98 (pallas_call :113), x f32 [64, 128], 100 steps:
+//        acc[r, c] += x[(idx[r, c] + k) % 64, c]
+// and the five Pallas kernels of scripts/probe_crossbar.py, run by
 // `run_kernel` :30 (pallas_call :33) or `go_d` :109 (pallas_call :110),
 // ITERS = 2000 steps, acc from 0 and every sum in the order of k:
 //   P4-a `kern_a` :48  acc[r, c] += x[(sub[r, c] + k) % 8, c]
@@ -114,6 +121,31 @@
 // of multiplies and adds (op_chain_kernel, dpt_probe_crossbar_op_cycles);
 // E's own clocks an operation (dpt_probe_crossbar_math_cycles) are printed
 // beside them.
+//
+// P3 (`lanes_kernel<1>`, `column_kernel`).  The first port ran each in one
+// block of 1024 threads on one SM (P3-b 8 elements a thread), whose
+// shared-memory pipe served all 32 warps: 51.1 and 305.9 ns a step.  P3-a
+// is B at K = 1 over half the steps, so it launches B's kernel: B's table
+// holds x + 0.0f, which differs from x only at -0.0f, and a sum that starts
+// at +0 never becomes -0 by adding a zero of either sign, so the two sums
+// are equal bit for bit.  P3-b is A's lookup over 64 rows: lane t reads
+// only its own column.  Block b of one warp holds elements b * 32 .. b * 32
+// + 31 of the [64, 128] tile (one row, 32 columns) and copies those columns
+// of all 64 rows into shared memory, lane t's word of row j at j * 32 + t,
+// always bank t, then the column's first U - 1 rows again (12 KB).  The
+// period, 64, is too long for A's per-lane offsets held in registers, so
+// P3-b takes B's group instead: U steps read from one base at offsets fixed
+// at compile time, and the index costs an add, a mask and a shift a group.
+// Each lookup is a volatile load, as A's: at U = 32 a pair of groups spans
+// the period, and the compiler hoisted the 64 lookups out of the loop.
+// Each runs one grid, fixed in its entry point.  What bounds them now: the
+// launch and the fill, then the chain.  On an H100 (700 W) P3-a takes
+// 0.0086 ms, 5.6 us of it at 0 steps, its loop 3.0 ns a step (its chain
+// of 1,000 adds 2.03 us); P3-b 0.0062 ms, 5.8 us of it at 0 steps (the 8
+// KB column fill), its loop 2.06 SASS instructions a step.  P3-b at 8
+// elements a thread (32 blocks, rows r, r + 8, ..., 8 sums side by side)
+// took 1.22 times as long: its warp issues 8 lookups and adds a step
+// (scripts/torch_crossbar_shapes.py).
 
 #include "probe_common.cuh"
 
@@ -136,6 +168,10 @@ constexpr int kLanesThreads = 128;  // B's threads a block: one tile row
 constexpr int kGroupLoads = 32;  // B's lookups a group: 32 / K steps
 constexpr int kFusedThreads = 32;  // C's threads a block: one warp
 constexpr int kFusedGroup = 8;  // C's steps a group, a multiple of 8
+constexpr int kRows0 = 64;  // P3-b's tile rows
+constexpr int kTile0 = kRows0 * kLanes;  // P3-b's tile
+constexpr int kColumnThreads = 32;  // P3-b's threads a block: one warp
+constexpr int kColumnGroup = 32;  // P3-b's steps a group (U)
 
 // D's block barrier: a warp's alone for a one-warp block.
 __device__ __forceinline__ void sync_rows_block() {
@@ -337,6 +373,38 @@ __global__ void __launch_bounds__(kSublaneThreads) sublane_kernel(
       [&](unsigned) { return [&](int u) { return *x_u[u]; }; }, iters);
 }
 
+// P3-b: block b of T = kColumnThreads threads (one warp) holds elements b *
+// T .. b * T + T - 1 (in one row of the [64, 128] tile) and their columns
+// of all 64 rows, lane t's word of row j at j * T + t (bank t), then rows 0
+// .. U - 2 again.  A thread reads only the words it wrote.  A group of U
+// steps from step k reads rows j .. j + U - 1, j = (j0 + k) % 64, from one
+// base.
+__global__ void __launch_bounds__(kColumnThreads) column_kernel(
+    const float* __restrict__ x, const int* __restrict__ idx, int iters,
+    float* __restrict__ out) {
+  constexpr int T = kColumnThreads, U = kColumnGroup;
+  __shared__ float xs[(kRows0 + U - 1) * T];
+  const int t = static_cast<int>(threadIdx.x);
+  const int e = static_cast<int>(blockIdx.x) * T + t;
+  const int c = e % kLanes;
+  float v[kRows0];  // all of the column's loads in flight at once
+#pragma unroll
+  for (int j = 0; j < kRows0; ++j) v[j] = __ldg(x + j * kLanes + c);
+#pragma unroll
+  for (int j = 0; j < kRows0 + U - 1; ++j) xs[j * T + t] = v[j % kRows0];
+  const unsigned j0 = static_cast<unsigned>(__ldg(idx + e));
+  __syncwarp();
+  // lookup u of the group from step k: x[(j0 + k + u) % 64, c], by a
+  // volatile load (a pair of groups spans the period)
+  const volatile float* xl = xs + t;
+  out[e] = sum_steps<U, 1>(
+      [&](unsigned k) {
+        const volatile float* p = xl + ((j0 + k) & (kRows0 - 1)) * T;
+        return [p](int u) -> float { return p[u * kColumnThreads]; };
+      },
+      iters);
+}
+
 // D's dynamic shared memory: the ring of kRowsStages stages of kRowsGroup
 // slices of kRowsThreads floats.
 constexpr int kRowsRingBytes =
@@ -529,6 +597,12 @@ static_assert((kRowsStages & (kRowsStages - 1)) == 0,
               "D's stages are a power of 2");
 static_assert(kRowsThreads * sizeof(float) % 16 == 0,
               "D's slices are whole 16-byte units of a bulk copy");
+static_assert(kTile0 % kColumnThreads == 0 && kLanes % kColumnThreads == 0 &&
+                  kColumnThreads == kBanks,
+              "P3-b's blocks are one warp within a tile row");
+static_assert((kRows0 & (kRows0 - 1)) == 0 && kColumnGroup <= kRows0,
+              "P3-b's row is the low bits of its index, a group's rows "
+              "wrap at most once");
 
 template <int K>
 int launch_lanes(const float* x, const int* idx, int iters, float* out,
@@ -545,7 +619,27 @@ int launch_lanes(const float* x, const int* idx, int iters, float* out,
 }  // namespace
 
 // Each launch runs on `stream` and returns cudaGetLastError() after it.
-// Tiles are [8, 128] (x f32; sub, idx, lane, srow int32), out f32 [8, 128].
+// Tiles are [8, 128] (x f32; sub, idx, lane, srow int32), out f32 [8, 128],
+// but P3-b's [64, 128].
+// P3-a: B's kernel at K = 1 in its grid (8 blocks of 128, a tile row
+// each); a negative iters returns cudaErrorInvalidValue.
+extern "C" int dpt_probe_gather_axis1(const float* x, const int* idx,
+                                      int iters, float* out, void* stream) {
+  if (iters < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_lanes<1>(x, idx, iters, out,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// P3-b: the [64, 128] tile in blocks of one warp; a negative iters returns
+// cudaErrorInvalidValue.
+extern "C" int dpt_probe_gather_axis0(const float* x, const int* idx,
+                                      int iters, float* out, void* stream) {
+  if (iters < 0) return static_cast<int>(cudaErrorInvalidValue);
+  column_kernel<<<kTile0 / kColumnThreads, kColumnThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(x, idx, iters, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // P4-a: the tile in blocks of kSublaneThreads; a negative iters returns
 // cudaErrorInvalidValue.
 extern "C" int dpt_probe_crossbar_sublane(const float* x, const int* sub,

@@ -6,7 +6,7 @@
 // cluster by st.async into mbarrier-counted slots; P1
 // (smem_walk.cu) stages its records by bulk copies counted on an mbarrier
 // and takes K1's helpers from traverse_common.cuh; the primitive
-// probes P3, P4, P7 and P8 (gather.cu, crossbar.cu, features.cu) take the
+// probes P3, P4, P7 and P8 (crossbar.cu, features.cu) take the
 // tile shape and JAX's dynamic-slice start.
 //
 // The chains' tables are the TPU probes' `nodes` [1024, 128] f32, read as

@@ -185,7 +185,7 @@ def load_probe_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build("libdpt_probes", _probe_sources())))
     p, i = ctypes.c_void_p, ctypes.c_int
     ip = ctypes.POINTER(i)
-    # The primitive probes (gather.cu, crossbar.cu, features.cu): the
+    # The primitive probes (crossbar.cu, features.cu): the
     # tiles, then out and the stream.
     tile_iters = [p, p, i, p, p]  # x, index tile, iters | idx, table, dim
     for name, args in (

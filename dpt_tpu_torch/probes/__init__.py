@@ -16,8 +16,9 @@ card (`python -m dpt_tpu_torch.probes.<name>`):
     chain, the tile over one cluster as P6's (csrc/probes/interleave2.cu).
   - `probe_gather` (P3): a lane gather within the rows of an [8, 128] tile
     and a row gather within the columns of a [64, 128] one, repeated
-    (csrc/probes/gather.cu); `xla_gather_probe` and `chase` are torch
-    indexing, as XLA computed them outside any kernel.
+    (csrc/probes/crossbar.cu: the first on P4-b's kernel at K = 1, the
+    second over 256 one-warp blocks); `xla_gather_probe` and `chase` are
+    torch indexing, as XLA computed them outside any kernel.
   - `probe_crossbar` (P4): a row gather, K lane gathers a step, the two
     fused, row blocks of a 2 MB table, and 70 multiply-adds a step, each
     over one [8, 128] tile (csrc/probes/crossbar.cu; the last over 32

@@ -9,24 +9,33 @@ Counterpart of `scripts/attic/probe_gather.py`:
     kernel, so here they are torch indexing (`xla_gather`, `chase`), timed
     on the card as the TPU probe prints them (ms, GB/s, Mgather/s).
   - `pallas_gather_probe` :64, two Pallas kernels, each ported as a CUDA
-    kernel (csrc/probes/gather.cu):
+    kernel of csrc/probes/crossbar.cu, beside P4's, whose designs they
+    share:
       - `axis1_gather(x, idx, iters)` (`kern` :66, pallas_call :82): x f32
         and idx int32 [8, 128], acc[r, c] += x[r, (idx[r, c] + k) % 128]
-        for k < iters (the TPU probe's 1000);
+        for k < iters (the TPU probe's 1000).  This is P4-b at K = 1, so
+        it launches P4-b's `lanes_kernel<1>`: 8 blocks of 128 threads, a
+        tile row each, the row copied once a shared-memory bank (its table
+        holds x + 0.0f, which a sum from +0 cannot tell from x);
       - `axis0_gather(x, idx, iters)` (`kern0` :98, pallas_call :113): x
         f32 and idx int32 [64, 128], acc[r, c] += x[(idx[r, c] + k) % 64,
-        c] for k < iters (100).
+        c] for k < iters (100).  `column_kernel`: 256 blocks of one warp,
+        each lane's column of the 64 rows in its own bank, a group of 32
+        steps read from one base.
     % is floor mod, so any int32 index is taken (the TPU probe's are in
     [0, 128) and [0, 64)).  CUDA tensors launch the kernel; CPU tensors
     run the `*_reference` functions (bit for bit on the card).
+    `row_patterns` makes the [64, 128] index tiles P3-b is timed on
+    (P3-a takes `probe_crossbar.index_patterns`' idx).
 
     python -m dpt_tpu_torch.probes.probe_gather
 
 prints the TPU probe's lines on the card (the torch gathers, then ns a
-gather of each kernel beside the bound of the one SM that runs its block
-and its chain's latency bound at the card's clocks a dependent operation,
+gather of each kernel beside the bound of one SM doing all its work and
+its chain's latency bound at the card's clocks a dependent operation,
 `probe_crossbar.op_cycles`), the card's name and power limit and one JSON
-line.
+line.  scripts/torch_crossbar_shapes.py times both kernels per index tile
+and at 0 steps beside an older tree's.
 """
 
 from __future__ import annotations
@@ -100,6 +109,22 @@ def inputs(rng):
             rng.integers(0, LANES, (8, LANES), dtype=np.int32),
             rng.normal(size=(ROWS_AXIS0, LANES)).astype(np.float32),
             rng.integers(0, ROWS_AXIS0, (ROWS_AXIS0, LANES), dtype=np.int32))
+
+
+def row_patterns(rng):
+    """pattern -> int32 [64, 128] numpy tile of P3-b's indices, named as
+    `probe_crossbar.PATTERNS`: "seeded", drawn as the TPU probe draws them;
+    "one_bank", where at every step a warp's 32 lanes (32 columns of one
+    row) read one row, which a copy holding each column whole (column c at
+    c * 64) would put on one bank; and "identity" (idx0 = r)."""
+    rows, cols = np.meshgrid(np.arange(ROWS_AXIS0), np.arange(LANES),
+                             indexing="ij")
+    tiles = {
+        "seeded": rng.integers(0, ROWS_AXIS0, (ROWS_AXIS0, LANES)),
+        "one_bank": (7 * rows + 5 * (cols // 32) + 3) % ROWS_AXIS0,
+        "identity": rows,
+    }
+    return {name: t.astype(np.int32) for name, t in tiles.items()}
 
 
 def launches(x, idx, x0, idx0, iters=None):

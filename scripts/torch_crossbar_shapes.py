@@ -1,8 +1,10 @@
 """P4-a, P4-b, P4-c and P4-d (csrc/probes/crossbar.cu `sublane_kernel`,
-`lanes_kernel`, `fused_kernel`, `rows_kernel`) in the grids they are built
-for, beside an older tree's kernels, A and D in blocks of 128, and D
-loading its row blocks by plain loads: what a lookup from shared memory and
-a row block from L2 cost, and whether the indices change it.
+`lanes_kernel`, `fused_kernel`, `rows_kernel`) and P3-a and P3-b
+(`lanes_kernel<1>`, `column_kernel`) in the grids they are built for,
+beside an older tree's kernels, A and D in blocks of 128, D loading its
+row blocks by plain loads, and P3-b 8 elements a thread: what a lookup
+from shared memory and a row block from L2 cost, and whether the indices
+change it.
 
     python scripts/torch_crossbar_shapes.py [--old DIR] [--sass]
 
@@ -10,18 +12,23 @@ Each build's P4-a (2,000 steps; the index pattern's `srow` tile as its
 `sub`), P4-b (K = 1, 4, 12 at the TPU script's 2,000 // K steps) and P4-c
 (2,000 steps), on each index pattern of `probe_crossbar.index_patterns`
 (seeded, one bank, identity), and its P4-d at 2,000 and 2,003 rows of
-`probe_crossbar.inputs`' table (seed 0), is first checked equal to its
-plain version bit for bit, then timed with `probes.launch_ms` (the median
-of 20 launches behind a sleep) in turns over 3 rounds, the order reversed
-every round.  This tree's kernels run through the public wrappers
-(`sublane_gather`, `lane_gathers`, `fused_lookup`, `row_blocks`).  The
-edited copies of this tree's crossbar.cu (`EDITS`), each written under
-`dpt_tpu_torch/_build/crossbar_NAME/` and built alone: "w128" runs A and
-D in 8 blocks of 128 threads (a tile row each; `kSublaneThreads`,
-`kRowsThreads`), timed for both; "ldg8", "ldg16" and "ldg32" put in place
-of D's ring its step loop before the ring (the row starts staged in
-shared memory, one plain load a step, 8, 16 or 32 steps' loads in
-flight) over the same 32 one-warp blocks, timed for D.
+`probe_crossbar.inputs`' table (seed 0), and its P3-a (1,000 steps, the
+pattern's idx tile) and P3-b (100 steps, `probe_gather.row_patterns`) on
+a seeded x, is first checked equal to its plain version bit for bit, then
+timed with `probes.launch_ms` (the median of 20 launches behind a sleep)
+in turns over 3 rounds, the order reversed every round.  This tree's
+kernels run through the public wrappers (`sublane_gather`,
+`lane_gathers`, `fused_lookup`, `row_blocks`, `axis1_gather`,
+`axis0_gather`).  The edited copies of this tree's crossbar.cu
+(`EDITS`), each written under `dpt_tpu_torch/_build/crossbar_NAME/` and
+built alone: "w128" runs A and D in 8 blocks of 128 threads (a tile row
+each; `kSublaneThreads`, `kRowsThreads`), timed for both; "ldg8",
+"ldg16" and "ldg32" put in place of D's ring its step loop before the
+ring (the row starts staged in shared memory, one plain load a step, 8,
+16 or 32 steps' loads in flight) over the same 32 one-warp blocks, timed
+for D; "chains8" runs P3-b in 32 blocks of one warp, 8 elements a thread
+(rows r, r + 8, ..., r + 56 of one column: 8 independent sums), timed
+for P3-b.
 
   --old DIR           DIR/crossbar.cu of an older tree, with its
                       probe_common.cuh and ../traverse_common.cuh (the C
@@ -34,7 +41,11 @@ flight) over the same 32 one-warp blocks, timed for D.
                       <commit> dpt_tpu_torch/csrc | tar -x -C
                       dpt_tpu_torch/_build/old`; built alone by
                       `kernels/build.build` (the probe library's flags) and
-                      timed as "old" in the same turns.
+                      timed as "old" in the same turns.  P3's
+                      `dpt_probe_gather_axis1` / `_axis0(x, idx, iters,
+                      out, stream)` come from DIR/gather.cu, built alone
+                      beside it, where DIR has one (the trees before P3
+                      moved into crossbar.cu), else from DIR's crossbar.cu.
   --sass              each build's step loops in the machine code
                       (`cuobjdump -sass`, `probes.sass.loop_counts`): of
                       each kernel, the loop over the most shared loads
@@ -43,6 +54,7 @@ flight) over the same 32 one-warp blocks, timed for D.
                       global loads (LDG) a step.  For the old and ldg
                       builds' D that loop is the one over chunks of row
                       starts, so its counts a step include their set-up.
+                      P3-a's loop in this tree is P4-b's at K = 1.
 
 Prints the card's name and power limit, one line per kernel and pattern
 or row count (the median of the rounds' medians, ns a step, each other
@@ -75,9 +87,13 @@ sys.path.insert(0, str(ROOT))
 from dpt_tpu_torch import probes  # noqa: E402
 from dpt_tpu_torch.kernels import build  # noqa: E402
 from dpt_tpu_torch.probes import probe_crossbar as p4  # noqa: E402
+from dpt_tpu_torch.probes import probe_gather as p3  # noqa: E402
 from dpt_tpu_torch.probes import sass  # noqa: E402
 
-KERNELS = ("sublane", *(f"lanes_K{K}" for K in p4.KS), "fused", "rows")
+GATHERS = ("gather_axis1", "gather_axis0")
+GATHER_TILE = {"gather_axis1": "idx", "gather_axis0": "idx0"}  # index tile
+KERNELS = ("sublane", *(f"lanes_K{K}" for K in p4.KS), "fused", "rows",
+           *GATHERS)
 ROW_COUNTS = ("2000", "2003")
 TIMED_LAUNCHES = 20
 ROUNDS = 3
@@ -116,40 +132,109 @@ LDG_ROWS = """__global__ void __launch_bounds__(kRowsThreads) rows_kernel(
   out[e] = acc;
 }
 """
-# The edited copies of this tree's crossbar.cu: name -> (the constants set,
-# the text put in place of `rows_kernel` or None, the kernels timed).
-EDITS = {
-    "w128": ({"kSublaneThreads": 128, "kRowsThreads": 128}, None,
-             ("sublane", "rows")),
-    **{f"ldg{u}": ({}, LDG_ROWS.replace("@U@", str(u)), ("rows",))
-       for u in (8, 16, 32)},
+# P3-b 8 elements a thread: block b of one warp holds rows r0, r0 + 8, ...,
+# r0 + 56 (r0 = b / 4) of its 32 columns, the same column copy as
+# `column_kernel`, and runs the 8 sums side by side, a group of U steps of
+# each read from one base, each lookup a volatile load.
+CHAINS8_COLUMN = """__global__ void __launch_bounds__(kColumnThreads) column_kernel(
+    const float* __restrict__ x, const int* __restrict__ idx, int iters,
+    float* __restrict__ out) {
+  constexpr int T = kColumnThreads, U = kColumnGroup, C = 8;
+  constexpr int kStride = kRows0 / C;  // between a thread's rows
+  __shared__ float xs[(kRows0 + U - 1) * T];
+  const int t = static_cast<int>(threadIdx.x);
+  const int b = static_cast<int>(blockIdx.x);
+  const int r0 = b / (kLanes / T);
+  const int c = b % (kLanes / T) * T + t;
+  float v[kRows0];
+#pragma unroll
+  for (int j = 0; j < kRows0; ++j) v[j] = __ldg(x + j * kLanes + c);
+#pragma unroll
+  for (int j = 0; j < kRows0 + U - 1; ++j) xs[j * T + t] = v[j % kRows0];
+  unsigned j0[C];
+  float acc[C];
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    j0[q] = static_cast<unsigned>(__ldg(idx + (r0 + q * kStride) * kLanes + c));
+    acc[q] = 0.f;
+  }
+  __syncwarp();
+  const volatile float* xl = xs + t;  // a load a lookup, as column_kernel
+  const int groups = iters / U;
+  for (int h = 0; h < groups; ++h) {
+    const unsigned k = static_cast<unsigned>(h) * U;
+    const volatile float* p[C];
+#pragma unroll
+    for (int q = 0; q < C; ++q) p[q] = xl + ((j0[q] + k) & (kRows0 - 1)) * T;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int q = 0; q < C; ++q) acc[q] = acc[q] + p[q][u * T];
+    }
+  }
+  for (int k = groups * U; k < iters; ++k) {
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      acc[q] = acc[q] + xl[((j0[q] + static_cast<unsigned>(k)) &
+                            (kRows0 - 1)) * T];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < C; ++q) out[(r0 + q * kStride) * kLanes + c] = acc[q];
 }
-# kernel -> the regex of its function's name in the machine code
-FUNCTIONS = {"sublane": r"sublane_kernel", "fused": r"fused_kernel",
-             "rows": r"rows_kernel",
-             **{f"lanes_K{K}": rf"lanes_kernelILi{K}E" for K in p4.KS}}
+"""
+
+
+def _const(name, value):
+    """An edit that sets `constexpr int name` to value."""
+    return (rf"constexpr int {name} = -?\d+;", f"constexpr int {name} = {value};")
+
+
+def _kernel(name, text):
+    """An edit that puts `text` in place of kernel `name`'s definition, to
+    its closing brace at column 0."""
+    return (rf"__global__ void __launch_bounds__\(\w+\) {name}\(.*?\n}}\n",
+            text)
+
+
+# The edited copies of this tree's crossbar.cu: name -> (the edits, each a
+# regex of crossbar.cu's text matching once and its replacement; the
+# kernels timed).
+EDITS = {
+    "w128": ((_const("kSublaneThreads", 128), _const("kRowsThreads", 128)),
+             ("sublane", "rows")),
+    **{f"ldg{u}": ((_kernel("rows_kernel", LDG_ROWS.replace("@U@", str(u))),),
+                   ("rows",))
+       for u in (8, 16, 32)},
+    "chains8": ((_kernel("column_kernel", CHAINS8_COLUMN),
+                 (r"column_kernel<<<kTile0 / kColumnThreads,",
+                  "column_kernel<<<kTile0 / kColumnThreads / 8,")),
+                ("gather_axis0",)),
+}
+# kernel -> the regexes of its function's name in the machine code, the
+# first found taken (P3's in an older tree's gather.cu, else in
+# crossbar.cu)
+FUNCTIONS = {"sublane": (r"sublane_kernel",), "fused": (r"fused_kernel",),
+             "rows": (r"rows_kernel",),
+             **{f"lanes_K{K}": (rf"lanes_kernelILi{K}E",) for K in p4.KS},
+             "gather_axis1": (r"gather_axis1_kernel", r"lanes_kernelILi1E"),
+             "gather_axis0": (r"gather_axis0_kernel", r"column_kernel")}
 # kernel -> what its step loop is the loop over the most of: shared loads
 # for the lookups, float adds for D (whose loop over chunks holds the step
 # loop and more shared loads)
 STEP_LOOP_BY = {k: ("FADD",) if k == "rows" else ("LDS",) for k in FUNCTIONS}
 
 
-def sources(probe_dir: pathlib.Path):
-    return [probe_dir / "crossbar.cu", probe_dir / "probe_common.cuh",
+def sources(probe_dir: pathlib.Path, source="crossbar.cu"):
+    return [probe_dir / source, probe_dir / "probe_common.cuh",
             probe_dir.parent / "traverse_common.cuh"]
 
 
 def edited_copy(name) -> pathlib.Path:
     """This tree's csrc/probes/crossbar.cu edited as `EDITS[name]` says,
     and the headers it includes, under _build/crossbar_<name>/probes."""
-    consts, rows_kernel, _ = EDITS[name]
+    edits, _ = EDITS[name]
     text = (build.PROBE_CSRC / "crossbar.cu").read_text()
-    edits = [(rf"constexpr int {c} = -?\d+;", f"constexpr int {c} = {v};")
-             for c, v in consts.items()]
-    if rows_kernel is not None:
-        # the kernel's definition, to its closing brace at column 0
-        edits.append((r"__global__ void __launch_bounds__\(kRowsThreads\) "
-                      r"rows_kernel\(.*?\n}\n", rows_kernel))
     for pattern, new in edits:
         text, n = re.subn(pattern, lambda _m, new=new: new, text,
                           flags=re.S)
@@ -166,9 +251,12 @@ def edited_copy(name) -> pathlib.Path:
 
 def steps_of(kernel, case="2000"):
     """(steps, dependent adds a step) of a kernel at the TPU script's
-    ITERS (D: at `case` rows)."""
+    ITERS (D: at `case` rows; P3 at its script's 1,000 and 100)."""
     if kernel == "rows":
         return (int(case) if case.isdigit() else int(ROW_COUNTS[0])), 1
+    if kernel in GATHERS:
+        return (p3.ITERS_AXIS1 if kernel == "gather_axis1"
+                else p3.ITERS_AXIS0), 1
     if kernel in ("sublane", "fused"):
         return p4.ITERS, 1
     K = int(kernel.split("_K")[1])
@@ -182,9 +270,11 @@ def cases_of(kernel):
 
 
 class Library:
-    """The C interface of a crossbar.cu built alone at `lib_path`."""
+    """The C interface of a crossbar.cu built alone at `lib_path`, with P3's
+    from `gather_path` (an older tree's gather.cu built alone) or, without
+    it, from the crossbar.cu where it has them."""
 
-    def __init__(self, lib_path):
+    def __init__(self, lib_path, gather_path=None):
         self.name = pathlib.Path(lib_path).name
         lib = ctypes.CDLL(str(lib_path))
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -195,7 +285,18 @@ class Library:
             f = getattr(lib, f"dpt_probe_crossbar_{fn}")
             f.argtypes = args
             f.restype = i
+        glib = lib if gather_path is None else ctypes.CDLL(str(gather_path))
+        self.gathers = {}
+        for k in GATHERS:
+            f = getattr(glib, f"dpt_probe_{k}", None)
+            if f is not None:
+                f.argtypes = [p, p, i, p, p]
+                f.restype = i
+                self.gathers[k] = f
         self.lib = lib
+
+    def has(self, kernel):
+        return kernel not in GATHERS or kernel in self.gathers
 
     def _check(self, kernel, err):
         if err:
@@ -204,7 +305,11 @@ class Library:
     def lookup(self, kernel, x, t, steps):
         out = torch.empty_like(x)
         stream = torch.cuda.current_stream().cuda_stream
-        if kernel == "sublane":
+        if kernel in GATHERS:
+            err = self.gathers[kernel](
+                x.data_ptr(), t[GATHER_TILE[kernel]].data_ptr(), steps,
+                out.data_ptr(), stream)
+        elif kernel == "sublane":
             err = self.lib.dpt_probe_crossbar_sublane(
                 x.data_ptr(), t["srow"].data_ptr(), steps, out.data_ptr(),
                 stream)
@@ -233,7 +338,15 @@ class Tree:
     """This tree's kernels, through the public wrappers."""
 
     @staticmethod
+    def has(kernel):
+        return True
+
+    @staticmethod
     def lookup(kernel, x, t, steps):
+        if kernel == "gather_axis1":
+            return p3.axis1_gather(x, t["idx"], steps)
+        if kernel == "gather_axis0":
+            return p3.axis0_gather(x, t["idx0"], steps)
         if kernel == "sublane":
             return p4.sublane_gather(x, t["srow"], steps)
         if kernel == "fused":
@@ -247,6 +360,10 @@ class Tree:
 
 
 def plain(kernel, x, t, steps):
+    if kernel == "gather_axis1":
+        return p3.axis1_gather_reference(x, t["idx"], steps)
+    if kernel == "gather_axis0":
+        return p3.axis0_gather_reference(x, t["idx0"], steps)
     if kernel == "sublane":
         return p4.sublane_gather_reference(x, t["srow"], steps)
     if kernel == "fused":
@@ -254,16 +371,18 @@ def plain(kernel, x, t, steps):
     return p4.lane_gathers_reference(x, t["idx"], steps_of(kernel)[1], steps)
 
 
-def step_loops(lib_path, kernels):
-    """{kernel: counts} of a built library's step loops
+def step_loops(lib_paths, kernels):
+    """{kernel: counts} of built libraries' step loops
     (`probes.sass.loop_counts`, by shared loads)."""
-    text = sass.dump(lib_path)
+    text = "".join(sass.dump(path) for path in lib_paths)
     out = {}
     for k in kernels:
-        found = sass.loop_counts(text, FUNCTIONS[k], adds=steps_of(k)[1],
-                                 loads=STEP_LOOP_BY[k])
-        if found:
-            out[k] = found[0][1]
+        for function in FUNCTIONS[k]:
+            found = sass.loop_counts(text, function, adds=steps_of(k)[1],
+                                     loads=STEP_LOOP_BY[k])
+            if found:
+                out[k] = found[0][1]
+                break
     return out
 
 
@@ -276,19 +395,23 @@ def main():
         sys.exit("needs a CUDA card")
     card = probes.card_line()
     print(card, flush=True)
-    paths = {"tree": build.library_path("libdpt_probes",
-                                        build._probe_sources())}
+    paths = {"tree": [build.library_path("libdpt_probes",
+                                         build._probe_sources())]}
     calls = {"tree": Tree}
     if args.old is not None:
-        paths["old"] = build.build("libdpt_crossbar_old", sources(args.old))
-        calls["old"] = Library(paths["old"])
+        paths["old"] = [build.build("libdpt_crossbar_old", sources(args.old))]
+        if (args.old / "gather.cu").exists():
+            paths["old"].append(build.build(
+                "libdpt_gather_old", sources(args.old, "gather.cu")))
+        calls["old"] = Library(*paths["old"])
     for name in EDITS:
-        paths[name] = build.build(f"libdpt_crossbar_{name}",
-                                  sources(edited_copy(name)))
-        calls[name] = Library(paths[name])
+        paths[name] = [build.build(f"libdpt_crossbar_{name}",
+                                   sources(edited_copy(name)))]
+        calls[name] = Library(*paths[name])
 
     def builds_of(kernel):
-        return [b for b in calls if b not in EDITS or kernel in EDITS[b][2]]
+        return [b for b in calls if (b not in EDITS or kernel in EDITS[b][1])
+                and calls[b].has(kernel)]
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
@@ -296,7 +419,11 @@ def main():
                         .astype(np.float32), device=dev)
     tiles = {name: {k: torch.as_tensor(v, device=dev) for k, v in t.items()}
              for name, t in p4.index_patterns(rng).items()}
+    for name, t in p3.row_patterns(rng).items():
+        tiles[name]["idx0"] = torch.as_tensor(t, device=dev)
     tiles["none"] = tiles["seeded"]
+    x0 = torch.as_tensor(rng.normal(size=(p3.ROWS_AXIS0, p3.LANES))
+                         .astype(np.float32), device=dev)
     a = p4.inputs(np.random.default_rng(0),
                   iters=max(int(n) for n in ROW_COUNTS))
     tab = torch.as_tensor(a["tab"], device=dev)
@@ -309,7 +436,8 @@ def main():
     def run(b, k, case):
         if k == "rows":
             return calls[b].rows(tab, rows_of[case])
-        return calls[b].lookup(k, x, tiles[case],
+        return calls[b].lookup(k, x0 if k == "gather_axis0" else x,
+                               tiles[case],
                                0 if case == "none" else steps_of(k)[0])
 
     refs = {}
@@ -317,7 +445,7 @@ def main():
         if (k, case) not in refs:
             refs[k, case] = (
                 p4.row_blocks_reference(tab, rows_of[case]) if k == "rows"
-                else plain(k, x, tiles[case],
+                else plain(k, x0 if k == "gather_axis0" else x, tiles[case],
                            0 if case == "none" else steps_of(k)[0]))
         got = run(b, k, case)
         torch.cuda.synchronize()

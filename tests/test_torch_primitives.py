@@ -2,7 +2,9 @@
 
   - P3 (`probe_gather`): the lane and row gathers against `kern` and
     `kern0` of scripts/attic/probe_gather.py at their own 1000 and 100
-    steps; `xla_gather` and `chase` against the script's jnp indexing.
+    steps; `xla_gather` and `chase` against the script's jnp indexing;
+    P3-a's plain version against P4-b's at K = 1 (whose kernel it
+    launches) and a model of P3-b's column copies on the CPU.
   - P4 (`probe_crossbar`): the five kernels of scripts/probe_crossbar.py
     (B at K = 1, 4, 12) with ITERS = 16; E allclose at rtol 1e-6 (XLA
     contracts its multiply-add chain into fused multiply-adds, the port
@@ -672,16 +674,18 @@ def _fused_words(lane, srow, k):
                                            tp4.LANES).long()
 
 
-def _wrap_tiles(rng):
-    """Index tiles near +-2^31 (B's idx, C's lane and srow), whose sums
-    with k wrap in int32."""
-    def tile():
-        near = rng.integers(0, 64, (tp4.ROWS, tp4.LANES))
-        return np.where(rng.random((tp4.ROWS, tp4.LANES)) < 0.5,
-                        2**31 - 1 - near, -2**31 + near).astype(np.int32)
+def _wrap_tile(rng, rows):
+    """An int32 [rows, 128] index tile near +-2^31, whose sums with k wrap
+    in int32."""
+    near = rng.integers(0, 64, (rows, tp4.LANES))
+    return np.where(rng.random((rows, tp4.LANES)) < 0.5, 2**31 - 1 - near,
+                    -2**31 + near).astype(np.int32)
 
-    idx = tile()
-    return {"idx": idx, "lane": idx, "srow": tile()}
+
+def _wrap_tiles(rng):
+    """Index tiles near +-2^31 (B's idx, C's lane and srow)."""
+    idx = _wrap_tile(rng, tp4.ROWS)
+    return {"idx": idx, "lane": idx, "srow": _wrap_tile(rng, tp4.ROWS)}
 
 
 def _lookup_tiles(rng, pattern):
@@ -745,6 +749,103 @@ def test_bank_copies_make_every_lookup_one_wavefront(pattern):
     assert torch.equal(acc_b, tp4.lane_gathers_reference(x, t["idx"], 4, 40))
     assert torch.equal(acc_c, tp4.fused_lookup_reference(x, t["lane"],
                                                          t["srow"], 40))
+
+
+# P3-b's layout on the card, mirrored from crossbar.cu (`column_kernel`,
+# kColumnThreads, kColumnGroup) for the CPU test below.
+COLUMN_THREADS = 32
+COLUMN_GROUP = 32
+COLUMN_STEPS = [0, 1, COLUMN_GROUP - 1, COLUMN_GROUP + 1, 100, 103]
+
+
+def _bits(t):
+    """A float32 tensor's bits: equal bits tell -0.0 from +0.0."""
+    return t.contiguous().view(torch.int32)
+
+
+def _row_tile(rng, pattern):
+    """P3-b's [64, 128] index tile of a pattern."""
+    if pattern == "wrap":
+        return _wrap_tile(rng, tp3.ROWS_AXIS0)
+    return tp3.row_patterns(rng)[pattern]
+
+
+def _column_copies(x0):
+    """Each one-warp block's copy as `column_kernel` builds it: block b
+    (tile row b // 4) copies columns (b % 4) * 32 .. + 31 of the 64 rows,
+    lane t's word of row j at j * 32 + t, then rows 0 .. U - 2 again;
+    [256 blocks, (64 + U - 1) * 32]."""
+    rows = torch.cat([x0, x0[:COLUMN_GROUP - 1]], dim=0)
+    return torch.stack([
+        rows[:, b % 4 * COLUMN_THREADS:(b % 4 + 1) * COLUMN_THREADS]
+        .reshape(-1) for b in range(x0.numel() // COLUMN_THREADS)])
+
+
+@pytest.mark.parametrize("steps", COLUMN_STEPS)
+@pytest.mark.parametrize("pattern", [*tp4.PATTERNS, "wrap"])
+def test_column_copies_read_their_own_bank(jax_kernels, pattern, steps):
+    """P3-b's layout as crossbar.cu `column_kernel` builds it: step k, step
+    u of the group from step g = k - k % U, reads its block's copy at
+    ((j0 + g) % 64 + u) * 32 + lane (one base a group, the offsets fixed,
+    the sum wrapping in int32), which is x0[(j0 + k) % 64, c] and always
+    the lane's own bank, so a warp's 32 lanes read 32 distinct banks at
+    every step, even where all read one row (the one-bank tile).  The
+    words summed in the order of k equal the plain version bit for bit, at
+    0 steps, within and off a group and at the TPU script's 100 steps,
+    where they also equal JAX's `kern0`."""
+    rng = np.random.default_rng(34)
+    x0 = torch.as_tensor(rng.normal(size=(tp3.ROWS_AXIS0, tp3.LANES))
+                         .astype(np.float32))
+    idx0 = torch.as_tensor(_row_tile(rng, pattern))
+    copies = _column_copies(x0)
+    assert copies.shape == (256, (64 + COLUMN_GROUP - 1) * COLUMN_THREADS)
+    e = torch.arange(x0.numel())
+    block, lane, col = e // COLUMN_THREADS, e % COLUMN_THREADS, e % tp3.LANES
+    j0 = idx0.reshape(-1).long()
+    acc = torch.zeros(x0.numel())
+    for k in range(steps):
+        g = k - k % COLUMN_GROUP
+        base = (j0 + g) & (tp3.ROWS_AXIS0 - 1)  # the low bits, as uint32
+        off = (base + k - g) * COLUMN_THREADS + lane
+        assert torch.equal(off % BANKS, lane)
+        word = copies[block, off]
+        row = torch.remainder(idx0 + k, tp3.ROWS_AXIS0).reshape(-1).long()
+        assert torch.equal(_bits(word), _bits(x0[row, col]))
+        acc = acc + word
+    acc = acc.reshape(x0.shape)
+    want = tp3.axis0_gather_reference(x0, idx0, steps)
+    assert torch.equal(_bits(acc), _bits(want))
+    if steps == tp3.ITERS_AXIS0:
+        np.testing.assert_array_equal(
+            acc.numpy(), jax_kernels["kern0"](x0.numpy(), idx0.numpy()))
+
+
+@pytest.mark.parametrize("steps", [0, 1, 31, 33, tp3.ITERS_AXIS1, 1003])
+@pytest.mark.parametrize("pattern", [*tp4.PATTERNS, "wrap"])
+def test_axis1_gather_is_lane_gathers_at_k1(jax_kernels, pattern, steps):
+    """P3-a launches P4-b's kernel at K = 1, whose table holds x + 0.0f:
+    on an x with planted -0.0 entries (which x + 0.0 turns into +0.0), and
+    on indices that wrap, P4-b's plain version at K = 1 equals P3-a's bit
+    for bit, since a sum from +0 never becomes -0 by adding a zero of
+    either sign; at the TPU script's 1,000 steps both equal JAX's `kern`."""
+    rng = np.random.default_rng(35)
+    x = rng.normal(size=(tp4.ROWS, tp4.LANES)).astype(np.float32)
+    x[rng.random(x.shape) < 0.25] = -0.0
+    x = torch.as_tensor(x)
+    idx = torch.as_tensor(_lookup_tiles(rng, pattern)["idx"])
+    negative_zero = _bits(x) == -2**31
+    assert bool(negative_zero.any()) and not bool(
+        (_bits(x + 0.0) == -2**31).any())
+    # some element's first lookup reads a planted -0.0
+    first = torch.gather(negative_zero, 1,
+                         torch.remainder(idx, tp4.LANES).long())
+    assert bool(first.any())
+    got = tp4.lane_gathers_reference(x, idx, 1, steps)
+    want = tp3.axis1_gather_reference(x, idx, steps)
+    assert torch.equal(_bits(got), _bits(want))
+    if steps == tp3.ITERS_AXIS1:
+        np.testing.assert_array_equal(
+            want.numpy(), jax_kernels["kern"](x.numpy(), idx.numpy()))
 
 
 def test_op_chain_reference_rounds_each_operation():
@@ -1024,6 +1125,76 @@ def test_sublane_c_side_refuses(cuda):
             x.data_ptr(), sub.data_ptr(), iters, out.data_ptr(), stream) == 0
         torch.cuda.synchronize()
         assert torch.equal(out, tp4.sublane_gather_reference(x, sub, iters))
+
+
+# P3's steps on the card: 0, within and just past a group of 32, the TPU
+# script's and off the group after it.
+GATHER_STEPS = {1: [0, 1, 7, COLUMN_GROUP + 1, tp3.ITERS_AXIS1, 1003],
+                0: [0, 1, 7, COLUMN_GROUP + 1, tp3.ITERS_AXIS0, 103]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", [*tp4.PATTERNS, "wrap"])
+@pytest.mark.parametrize("axis,steps", [(a, n) for a in (1, 0)
+                                        for n in GATHER_STEPS[a]])
+def test_gather_exact_on_card(cuda, axis, steps, pattern):
+    """P3-a (P4-b's kernel at K = 1, 8 blocks of 128) and P3-b (256
+    one-warp blocks, each lane's column in its own bank) equal their plain
+    versions bit for bit with one launch counted: at 0 steps, within and
+    off a group, at the TPU script's 1,000 / 100 steps and 1,003 / 103; on
+    the seeded, one-bank, identity and wrapping (near +-2^31) index tiles;
+    P3-a on an x with planted -0.0 entries."""
+    rng = np.random.default_rng(36)
+    if axis == 1:
+        x = rng.normal(size=(tp4.ROWS, tp4.LANES)).astype(np.float32)
+        x[rng.random(x.shape) < 0.25] = -0.0
+        idx = _lookup_tiles(rng, pattern)["idx"]
+        call, plain = tp3.axis1_gather, tp3.axis1_gather_reference
+    else:
+        x = rng.normal(size=(tp3.ROWS_AXIS0, tp3.LANES)).astype(np.float32)
+        idx = _row_tile(rng, pattern)
+        call, plain = tp3.axis0_gather, tp3.axis0_gather_reference
+    x, idx = torch.as_tensor(x, device=cuda), torch.as_tensor(idx,
+                                                              device=cuda)
+    name = f"gather_axis{axis}"
+    before = dict(probes.launch_counts)
+    got = call(x, idx, steps)
+    torch.cuda.synchronize()
+    assert probes.launch_counts == {**before, name: before[name] + 1}
+    assert got.device.type == "cuda"
+    assert torch.equal(_bits(got), _bits(plain(x, idx, steps)))
+
+
+@pytest.mark.cuda
+def test_gather_c_side_refuses(cuda):
+    """P3-a's and P3-b's C launches refuse a negative step count (-1 and
+    -2^31) with cudaErrorInvalidValue (1), launching nothing (a NaN-filled
+    output stays so), and launch at 0 and 10 steps (an output then equal
+    to the plain version)."""
+    from dpt_tpu_torch.kernels.build import load_probe_library
+
+    lib = load_probe_library()
+    rng = np.random.default_rng(37)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for axis, rows, plain in ((1, tp4.ROWS, tp3.axis1_gather_reference),
+                              (0, tp3.ROWS_AXIS0,
+                               tp3.axis0_gather_reference)):
+        x = torch.as_tensor(rng.normal(size=(rows, tp3.LANES))
+                            .astype(np.float32), device=cuda)
+        idx = torch.as_tensor(rng.integers(-1000, 1000, (rows, tp3.LANES),
+                                           dtype=np.int32), device=cuda)
+        launch = getattr(lib, f"dpt_probe_gather_axis{axis}")
+        out = torch.full_like(x, float("nan"))
+        for iters in (-1, -2**31):
+            assert launch(x.data_ptr(), idx.data_ptr(), iters,
+                          out.data_ptr(), stream) == 1, (axis, iters)
+        torch.cuda.synchronize()
+        assert bool(out.isnan().all())  # nothing was launched
+        for iters in (0, 10):
+            assert launch(x.data_ptr(), idx.data_ptr(), iters,
+                          out.data_ptr(), stream) == 0
+            torch.cuda.synchronize()
+            assert torch.equal(out, plain(x, idx, iters))
 
 
 LOOKUP_KERNELS = [*(f"crossbar_lanes_K{K}" for K in tp4.KS), "crossbar_fused"]
