@@ -1,0 +1,5 @@
+"""Process start to the start of the window (host clock)."""
+
+
+def read(run):
+    return run.setup_s
